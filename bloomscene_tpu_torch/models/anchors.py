@@ -1,0 +1,215 @@
+"""Anchor model state + initialization (gaussian_model.py:171-186, 440-479).
+
+Per-anchor state, stored as flat 1D leaves like the JAX package's
+``AnchorState`` (so the two convert leaf by leaf), with 2D/3D views:
+
+- anchor [C, 3], offset [C, K, 3], mask_logit [C, K, 1], feat [C, F],
+  scaling_log [C, 6], rotation [C, 4], opacity_raw [C, 1];
+- alive [C] bool capacity mask.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.knn import knn_mean_sq_dist
+from ..ops.quantization import quantize_anchor
+
+
+def inverse_sigmoid(x):
+    return np.log(x / (1.0 - x))
+
+
+def capacity_bucket(n: int, granularity: int = 8192) -> int:
+    """Anchor capacity: the next multiple of ``granularity`` (min 256)."""
+    return max(256, -(-n // granularity) * granularity)
+
+
+class AnchorState:
+    """Anchor state whose leaves are flat 1D tensors; views by property."""
+    _fields = ('anchor', 'offset', 'mask_logit', 'feat', 'scaling_log',
+               'rotation', 'opacity_raw', 'alive')
+    _widths = {'anchor': 3, 'scaling_log': 6, 'rotation': 4,
+               'opacity_raw': 1}
+
+    def __init__(self, anchor, offset, mask_logit, feat, scaling_log,
+                 rotation, opacity_raw, alive):
+        self._anchor = anchor.reshape(-1)
+        self._offset = offset.reshape(-1)
+        self._mask_logit = mask_logit.reshape(-1)
+        self._feat = feat.reshape(-1)
+        self._scaling_log = scaling_log.reshape(-1)
+        self._rotation = rotation.reshape(-1)
+        self._opacity_raw = opacity_raw.reshape(-1)
+        self._alive = alive
+
+    def _replace(self, **kw) -> "AnchorState":
+        vals = {f: getattr(self, '_' + f) for f in self._fields}
+        vals.update(kw)
+        return AnchorState(**vals)
+
+    @property
+    def capacity(self) -> int:
+        return self._alive.shape[0]
+
+    @property
+    def n_offsets(self) -> int:
+        return self._offset.numel() // (self.capacity * 3)
+
+    @property
+    def feat_dim(self) -> int:
+        return self._feat.numel() // self.capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self._alive.device
+
+    def _view(self, name):
+        x = getattr(self, '_' + name)
+        if name == 'offset':
+            return x.reshape(-1, self.n_offsets, 3)
+        if name == 'mask_logit':
+            return x.reshape(-1, self.n_offsets, 1)
+        if name == 'feat':
+            return x.reshape(-1, self.feat_dim)
+        return x.reshape(-1, self._widths[name])
+
+    @property
+    def anchor(self):
+        return self._view('anchor')
+
+    @property
+    def offset(self):
+        return self._view('offset')
+
+    @property
+    def mask_logit(self):
+        return self._view('mask_logit')
+
+    @property
+    def feat(self):
+        return self._view('feat')
+
+    @property
+    def scaling_log(self):
+        return self._view('scaling_log')
+
+    @property
+    def rotation(self):
+        return self._view('rotation')
+
+    @property
+    def opacity_raw(self):
+        return self._view('opacity_raw')
+
+    @property
+    def alive(self):
+        return self._alive
+
+    def num_alive(self) -> int:
+        return int(self._alive.sum())
+
+    def gather_rows(self, idx: torch.Tensor, alive: torch.Tensor
+                    ) -> "AnchorState":
+        """Row-gather every per-anchor field by ``idx``; ``alive`` becomes
+        the gathered state's alive mask."""
+        C = self.capacity
+        vals = {f: getattr(self, '_' + f).reshape(C, -1)[idx]
+                for f in self._fields if f != 'alive'}
+        return AnchorState(alive=alive, **vals)
+
+
+class AnchorBounds(NamedTuple):
+    """Anchor AABB for quantization / hash normalization."""
+    x_min: torch.Tensor   # [1, 3]
+    x_max: torch.Tensor   # [1, 3]
+
+    @staticmethod
+    def initial(device) -> "AnchorBounds":
+        return AnchorBounds(x_min=torch.zeros((1, 3), device=device),
+                            x_max=torch.ones((1, 3), device=device))
+
+
+def update_anchor_bounds(state: AnchorState) -> AnchorBounds:
+    """AABB over alive anchors with the 1.2/0.8 margin rule
+    (gaussian_model.py:401-411)."""
+    big = 1e9
+    alive = state.alive[:, None]
+    x_min = torch.where(alive, state.anchor, big).amin(0, keepdim=True)
+    x_max = torch.where(alive, state.anchor, -big).amax(0, keepdim=True)
+    x_min = torch.where(x_min < 0, x_min * 1.2, x_min * 0.8)
+    x_max = torch.where(x_max > 0, x_max * 1.2, x_max * 0.8)
+    return AnchorBounds(x_min=x_min, x_max=x_max)
+
+
+def voxelize_points(points: np.ndarray, voxel_size: float,
+                    seed: int = 0) -> np.ndarray:
+    """Shuffle + round-to-voxel + unique (gaussian_model.py:435-438)."""
+    rng = np.random.default_rng(seed)
+    pts = np.array(points)
+    rng.shuffle(pts)
+    return np.unique(np.round(pts / voxel_size), axis=0) * voxel_size
+
+
+def init_from_points(points: np.ndarray, *, n_offsets: int, feat_dim: int,
+                     device: torch.device, voxel_size: float = 0.001,
+                     capacity: int | None = None,
+                     seed: int = 0) -> tuple[AnchorState, float]:
+    """create_from_pcd (gaussian_model.py:440-479): voxelized anchors,
+    offset scales from 3-NN distances, zero offsets and features, masks on,
+    identity rotations, opacity 0.1, padded to ``capacity`` with dead
+    anchors. ``voxel_size`` <= 0 takes the median 3-NN distance."""
+    if voxel_size <= 0:
+        d2 = knn_mean_sq_dist(torch.as_tensor(points, dtype=torch.float32,
+                                              device=device))
+        voxel_size = float(torch.quantile(d2.cpu(), 0.5))
+    pts = voxelize_points(points, voxel_size, seed).astype(np.float32)
+    n = pts.shape[0]
+    if capacity is None:
+        capacity = capacity_bucket(int(n * 1.25))
+
+    d2 = knn_mean_sq_dist(torch.as_tensor(pts, device=device))
+    scales = torch.log(torch.sqrt(torch.clamp(d2, min=1e-7)))[:, None]
+
+    def pad(x, fill=0.0):
+        out = torch.full((capacity,) + tuple(x.shape[1:]), fill,
+                         dtype=x.dtype, device=device)
+        out[:n] = x
+        return out
+
+    f32 = dict(dtype=torch.float32, device=device)
+    state = AnchorState(
+        anchor=pad(torch.as_tensor(pts, device=device)),
+        offset=torch.zeros((capacity, n_offsets, 3), **f32),
+        mask_logit=pad(torch.ones((n, n_offsets, 1), **f32)),
+        feat=torch.zeros((capacity, feat_dim), **f32),
+        scaling_log=pad(scales.expand(n, 6).contiguous()),
+        rotation=pad(torch.tensor([1.0, 0, 0, 0], **f32).expand(n, 4)),
+        opacity_raw=pad(torch.full((n, 1), float(inverse_sigmoid(0.1)),
+                                   **f32)),
+        alive=torch.arange(capacity, device=device) < n,
+    )
+    return state, voxel_size
+
+
+# --- activated getters (gaussian_model.py:342-399), forward values ---
+
+def get_scaling(state: AnchorState) -> torch.Tensor:
+    return torch.exp(torch.clamp(state.scaling_log, -20.0, 10.0))
+
+
+def get_mask(state: AnchorState) -> torch.Tensor:
+    """Binary child mask: the forward value of the straight-through
+    ``sig + (hard - sig)``, computed as such so it rounds as the JAX
+    package's does."""
+    sig = torch.sigmoid(state.mask_logit)
+    hard = (sig > 0.01).to(torch.float32)
+    return sig + (hard - sig)
+
+
+def get_anchor_quantized(state: AnchorState,
+                         bounds: AnchorBounds) -> torch.Tensor:
+    q, _ = quantize_anchor(state.anchor, bounds.x_min, bounds.x_max)
+    return q

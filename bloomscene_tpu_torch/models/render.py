@@ -1,0 +1,128 @@
+"""Full neural render: anchor decode -> projection -> tile rasterizer.
+
+The forward of ``bloomscene_tpu/models/render.py`` (gaussian_renderer.render
++ prefilter_voxel, gaussian_renderer/__init__.py:211-349).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import GSConfig
+from ..ops import projection
+from ..ops.projection import ProjectedSplats
+from ..ops.reference_rasterizer import RenderOutput
+from ..ops.tile_rasterizer import rasterize_tiles
+from ..ops.tiles import TileBins, compute_tile_rects
+from ..scene.cameras import CameraArrays, Intrinsics
+from .anchors import get_scaling
+from .decode import DecodedGaussians, attribute_means, decode_neural_gaussians
+from .model import Model
+
+
+class RenderResult(NamedTuple):
+    out: RenderOutput
+    dec: DecodedGaussians
+    proj: ProjectedSplats
+    bins: TileBins
+    # anchor indices of the visible-compacted set ([visible_capacity]
+    # int64, entries == capacity are padding), or None when decode ran dense
+    visible_idx: torch.Tensor | None = None
+
+
+def _project(xyz, scaling, rotation, intr: Intrinsics, cam: CameraArrays):
+    cov6 = projection.build_cov3d(scaling, rotation)
+    return projection.project_gaussians(
+        xyz, cov6, cam.viewmat, cam.full_proj, intr.width, intr.height,
+        intr.focal_x, intr.focal_y, intr.tan_fovx, intr.tan_fovy)
+
+
+@torch.no_grad()
+def prefilter_anchors(model: Model, intr: Intrinsics,
+                      cam: CameraArrays) -> torch.Tensor:
+    """Anchor visibility: anchors projected as Gaussians with the offset
+    scale and the stored rotation, visible iff radius > 0 (prefilter_voxel,
+    gaussian_renderer:294-349)."""
+    st = model.state
+    proj = _project(st.anchor, get_scaling(st)[:, :3], st.rotation, intr,
+                    cam)
+    return proj.valid & st.alive
+
+
+def compact_visible(model: Model, visible: torch.Tensor,
+                    visible_capacity: int) -> tuple[Model, torch.Tensor]:
+    """Gather the visible anchors into a bucket of ``visible_capacity``
+    rows, padded with dead rows (``jnp.nonzero(size=..., fill_value=C)``);
+    visible anchors past the bucket are dropped."""
+    st = model.state
+    C = st.capacity
+    idx = torch.nonzero(visible).flatten()[:visible_capacity]
+    idx = torch.cat([idx, torch.full((visible_capacity - idx.shape[0],), C,
+                                     dtype=idx.dtype, device=idx.device)])
+    ok = idx < C
+    safe = torch.clamp(idx, max=C - 1)
+    return model._replace(state=st.gather_rows(safe, ok & st.alive[safe])), idx
+
+
+@torch.no_grad()
+def count_pairs(model: Model, intr: Intrinsics, cam: CameraArrays,
+                cfg: GSConfig, *, mode: str = 'eval',
+                visible: torch.Tensor | None = None,
+                visible_capacity: int | None = None) -> torch.Tensor:
+    """Total splat-tile pair count (before the cull) for one view: the
+    measuring pass that sizes the eval binning buffers."""
+    if (visible_capacity is not None and visible is not None
+            and model.state.capacity > visible_capacity):
+        model, _ = compact_visible(model, visible, visible_capacity)
+        visible = None
+    dec = decode_neural_gaussians(model, cam.camera_center, cfg, mode=mode,
+                                  visible=visible)
+    proj = _project(dec.xyz, dec.scaling, dec.rotation, intr, cam)
+    proj = proj._replace(valid=proj.valid & dec.valid)
+    opac_eff = torch.where(proj.valid, dec.opacity, 0.0)
+    *_, touched = compute_tile_rects(proj, intr.width, intr.height,
+                                     cfg.tile_size, opacities=opac_eff)
+    return torch.sum(touched)
+
+
+@torch.no_grad()
+def render(model: Model, intr: Intrinsics, cam: CameraArrays,
+           cfg: GSConfig, *, phase: int = 0, mode: str = 'train',
+           bg: torch.Tensor | None = None,
+           visible: torch.Tensor | None = None,
+           tile_capacity: int | None = None,
+           visible_capacity: int | None = None,
+           pair_capacity: int | None = None,
+           packed_capacity: int | None = None) -> RenderResult:
+    """Render one view. ``visible_capacity`` / ``pair_capacity`` /
+    ``packed_capacity`` override the cfg values (the eval render sizes them
+    from measuring passes over the orbit, pipeline.render_model)."""
+    dev = model.state.device
+    if bg is None:
+        bg = torch.zeros(3, device=dev)
+    if visible_capacity is None:
+        visible_capacity = cfg.visible_capacity
+    visible_idx = attr_means = None
+    if (visible_capacity is not None and visible is not None
+            and model.state.capacity > visible_capacity):
+        if mode == 'eval':
+            # quantization centers come from the FULL state, so the render
+            # does not depend on the compaction
+            attr_means = attribute_means(model.state)
+        model, visible_idx = compact_visible(model, visible,
+                                             visible_capacity)
+        visible = None
+    dec = decode_neural_gaussians(model, cam.camera_center, cfg,
+                                  phase=phase, mode=mode, visible=visible,
+                                  attr_means=attr_means)
+    proj = _project(dec.xyz, dec.scaling, dec.rotation, intr, cam)
+    proj = proj._replace(valid=proj.valid & dec.valid)
+    out, bins = rasterize_tiles(
+        proj, dec.color, dec.opacity, bg, intr.width, intr.height,
+        tile=cfg.tile_size,
+        pair_capacity=pair_capacity or cfg.pair_capacity,
+        tile_capacity=tile_capacity or cfg.max_splats_per_tile,
+        packed_capacity=packed_capacity or cfg.packed_capacity)
+    return RenderResult(out=out, dec=dec, proj=proj, bins=bins,
+                        visible_idx=visible_idx)

@@ -1,0 +1,157 @@
+#!/usr/bin/env python3
+"""Where a frame's time goes on the PyTorch port's render path, on one card.
+
+    python3 profile_render_torch.py [--frames 8]
+
+Builds the scene of ``chip_smoke.py`` (~111K anchors, GSConfig defaults,
+512x512, the rotate360 orbit), sizes the buffers as ``render_model`` does,
+then for each frame:
+
+1. stage times on the host clock with ``torch.cuda.synchronize()`` after
+   each stage: prefilter, compaction, decode, projection, binning (K3, the
+   tile sort, K4) and blend (K1 and the image assembly);
+2. under ``torch.profiler``: the device time by kernel name, the number of
+   kernel launches per frame and the device's busy share of the window.
+
+Prints one JSON object per measurement, the card's name and power limit
+first. Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_render_torch: needs a CUDA card", file=sys.stderr)
+        return 1
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    import chip_smoke as cs
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.models.decode import (attribute_means,
+                                                    decode_neural_gaussians)
+    from bloomscene_tpu_torch.models.render import (_project, compact_visible,
+                                                    count_pairs,
+                                                    prefilter_anchors, render)
+    from bloomscene_tpu_torch.ops.cuda.wrapper import blend_tiles
+    from bloomscene_tpu_torch.ops.tile_rasterizer import attr_rows
+    from bloomscene_tpu_torch.ops.tiles import bin_splats, tile_grid
+    from bloomscene_tpu_torch.pipeline.bloomscene import EVAL_VCAP_GRANULE
+
+    card = cs.card_name_and_power()
+    print(json.dumps({"card": card}), flush=True)
+    cfg = GSConfig(voxel_size=0.03)
+    model, _ = cs.trained_scale_model(cs.room_points(cs.N_POINTS, cs.SEED),
+                                      cfg, cs.SEED, "cuda")
+    cams = cs.orbit_cameras(args.frames, 512, 512, repo)
+    intr = cams[0].intrinsics
+    arrs = [c.device_arrays("cuda") for c in cams]
+    W, H, tile = intr.width, intr.height, cfg.tile_size
+    cap = cfg.max_splats_per_tile
+    gx, gy = tile_grid(W, H, tile)
+
+    # buffer sizes as render_model measures them
+    C = model.state.capacity
+    mv = max(int(prefilter_anchors(model, intr, a).sum()) for a in arrs)
+    g = EVAL_VCAP_GRANULE
+    vcap = min(-(-max(mv, g // 32) // g) * g, C)
+    mp = max(int(count_pairs(model, intr, a, cfg, mode="eval",
+                             visible=prefilter_anchors(model, intr, a),
+                             visible_capacity=vcap)) for a in arrs)
+    pcap = max(16384, -(-int(mp * 1.02) // 16384) * 16384)
+    print(json.dumps({"anchors": model.state.num_alive(), "capacity": C,
+                      "visible_capacity": vcap, "pair_capacity": pcap}),
+          flush=True)
+
+    def frame(a):
+        return render(model, intr, a, cfg, mode="eval",
+                      visible=prefilter_anchors(model, intr, a),
+                      visible_capacity=vcap, pair_capacity=pcap,
+                      packed_capacity=pcap)
+
+    frame(arrs[0])                                   # warm-up
+    torch.cuda.synchronize()
+
+    # 1. stage times, host clock, synchronized per stage
+    stages: dict[str, list[float]] = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with torch.no_grad():
+        for a in arrs:
+            t_frame = time.perf_counter()
+            vis = timed("prefilter", lambda: prefilter_anchors(model, intr,
+                                                               a))
+            sub, means = timed("compact", lambda: (
+                compact_visible(model, vis, vcap)[0],
+                attribute_means(model.state)))
+            dec = timed("decode", lambda: decode_neural_gaussians(
+                sub, a.camera_center, cfg, mode="eval", attr_means=means))
+            proj = timed("project", lambda: _project(
+                dec.xyz, dec.scaling, dec.rotation, intr, a))
+            proj = proj._replace(valid=proj.valid & dec.valid)
+            opac = torch.where(proj.valid, dec.opacity, 0.0)
+            bins = timed("bin", lambda: bin_splats(
+                proj, W, H, tile, pcap, cap, opacities=opac,
+                packed_capacity=pcap,
+                attr_rows=attr_rows(proj, dec.color, opac)))
+            timed("blend", lambda: blend_tiles(
+                bins.slab, bins.counts, bins.perm, bins.pos,
+                torch.zeros(3, device="cuda"), tile, gx, gy, W, H))
+            stages.setdefault("frame", []).append(
+                (time.perf_counter() - t_frame) * 1e3)
+    print(json.dumps({"stage_ms_mean": {k: sum(v) / len(v)
+                                        for k, v in stages.items()},
+                      "stage_ms": stages, "card": card}), flush=True)
+
+    # 2. profiler: device time by kernel, launches, busy share
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for a in arrs:
+            frame(a)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    kernels = []
+    for e in prof.key_averages():
+        # device-side events only: the CPU op that launched a kernel carries
+        # the same time again
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            kernels.append({"name": e.key[:90], "device_us": dev_us,
+                            "calls": e.count})
+    kernels.sort(key=lambda k: -k["device_us"])
+    n_launch = sum(k["calls"] for k in kernels)
+    device_ms = sum(k["device_us"] for k in kernels) / 1e3
+    print(json.dumps({
+        "frames": len(arrs), "wall_ms_per_frame": wall_ms / len(arrs),
+        "device_ms_per_frame": device_ms / len(arrs),
+        "device_busy_share": device_ms / wall_ms,
+        "kernel_launches_per_frame": n_launch / len(arrs),
+        "top_kernels": kernels[:25], "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

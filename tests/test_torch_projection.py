@@ -1,0 +1,127 @@
+"""Port parity: camera math and projection (bloomscene_tpu_torch.ops) against
+the JAX package on the same inputs.
+
+Projection is elementwise float32 arithmetic in the same order in both
+packages, so the outputs are asserted bitwise equal.
+"""
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from bloomscene_tpu.ops import graphics as jg
+from bloomscene_tpu.ops import projection as jp
+from bloomscene_tpu_torch.ops import graphics as tg
+from bloomscene_tpu_torch.ops import projection as tp
+
+torch.set_num_threads(2)
+
+
+def make_camera(W=64, H=64, fovx=1.0, fovy=1.0):
+    view = tg.world_to_view(np.eye(3), np.zeros(3))
+    full = tg.projection_matrix(0.01, 100.0, fovx, fovy) @ view
+    return (view, full, tg.fov2focal(fovx, W), tg.fov2focal(fovy, H),
+            np.tan(fovx / 2), np.tan(fovy / 2))
+
+
+def both_project(means, scales, quats, W=64, H=64):
+    view, full, fx, fy, tx, ty = make_camera(W, H)
+    pj = jp.project_gaussians(
+        jnp.asarray(means), jp.build_cov3d(jnp.asarray(scales),
+                                           jnp.asarray(quats)),
+        jnp.asarray(view), jnp.asarray(full), W, H, fx, fy, tx, ty)
+    pt = tp.project_gaussians(
+        torch.from_numpy(means), tp.build_cov3d(torch.from_numpy(scales),
+                                                torch.from_numpy(quats)),
+        torch.from_numpy(view), torch.from_numpy(full), W, H, fx, fy, tx, ty)
+    return pj, pt
+
+
+def test_camera_matrices_match():
+    R = np.linalg.qr(np.random.default_rng(3).normal(size=(3, 3)))[0]
+    t = np.array([0.3, -0.2, 1.5])
+    for kw in ({}, {'translate': np.array([0.1, 0.2, 0.3]), 'scale': 1.7}):
+        np.testing.assert_array_equal(tg.world_to_view(R, t, **kw),
+                                      jg.world_to_view(R, t, **kw))
+    np.testing.assert_array_equal(tg.projection_matrix(0.01, 100.0, 0.8, 0.7),
+                                  jg.projection_matrix(0.01, 100.0, 0.8, 0.7))
+    assert tg.fov2focal(0.9, 512) == jg.fov2focal(0.9, 512)
+    assert tg.focal2fov(582.69, 512) == jg.focal2fov(582.69, 512)
+
+
+def test_quat_identity_and_90deg_z():
+    s = np.sqrt(0.5)
+    for q, want in (([1.0, 0, 0, 0], np.eye(3)),
+                    ([s, 0.0, 0.0, s],
+                     np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1]]))):
+        R = tg.quat_to_rotmat(torch.tensor(q, dtype=torch.float32)).numpy()
+        np.testing.assert_allclose(R, want, atol=1e-6)
+        np.testing.assert_array_equal(
+            R, np.asarray(jg.quat_to_rotmat(jnp.asarray(q, jnp.float32))))
+
+
+def test_cov3d_cases(rng):
+    cov = tp.build_cov3d(torch.tensor([[0.5, 0.5, 0.5]]),
+                         torch.tensor([[1.0, 0, 0, 0]]))
+    np.testing.assert_allclose(cov[0], [0.25, 0, 0, 0.25, 0, 0.25],
+                               atol=1e-6)
+    cov = tp.build_cov3d(torch.tensor([[1.0, 2.0, 3.0]]),
+                         torch.tensor([[1.0, 0, 0, 0]]))
+    np.testing.assert_allclose(cov[0], [1, 0, 0, 4, 0, 9], atol=1e-5)
+    # isotropic covariance is rotation invariant; random ones match JAX
+    q = rng.normal(size=(64, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    iso = tp.build_cov3d(torch.full((64, 3), 0.3), torch.from_numpy(q))
+    np.testing.assert_allclose(iso, np.tile([0.09, 0, 0, 0.09, 0, 0.09],
+                                            (64, 1)), atol=1e-3)
+    s = rng.uniform(0.01, 0.5, (64, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tp.build_cov3d(torch.from_numpy(s), torch.from_numpy(q)).numpy(),
+        np.asarray(jp.build_cov3d(jnp.asarray(s), jnp.asarray(q))))
+
+
+def test_project_center_near_and_offscreen():
+    means = np.array([[0.0, 0.0, 2.0], [0.0, 0.0, 0.1], [0.0, 0.0, -1.0],
+                      [100.0, 0.0, 2.0]], np.float32)
+    scales = np.full((4, 3), 0.1, np.float32)
+    scales[3] = 0.01
+    quats = np.tile(np.array([1.0, 0, 0, 0], np.float32), (4, 1))
+    pj, pt = both_project(means, scales, quats)
+    assert pt.valid.tolist() == [True, False, False, False]
+    np.testing.assert_allclose(pt.mean2d[0], [31.5, 31.5], atol=1e-4)
+    np.testing.assert_allclose(pt.depth[0], 2.0, atol=1e-5)
+    assert int(pt.radius[0]) > 0
+    for a, b in zip(pj, pt):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_projection_bitwise_random(rng):
+    n = 400
+    means = np.stack([rng.uniform(-3, 3, n), rng.uniform(-3, 3, n),
+                      rng.uniform(-1, 6, n)], -1).astype(np.float32)
+    scales = rng.uniform(0.005, 0.6, (n, 3)).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    pj, pt = both_project(means, scales, quats, W=96, H=72)
+    assert 0 < int(pt.valid.sum()) < n
+    for name, a, b in zip(pj._fields, pj, pt):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                      err_msg=name)
+    view, _, fx, fy, tx, ty = make_camera(96, 72)
+    cov6 = tp.build_cov3d(torch.from_numpy(scales), torch.from_numpy(quats))
+    np.testing.assert_array_equal(
+        tp.ewa_cov2d(torch.from_numpy(means), cov6, torch.from_numpy(view),
+                     fx, fy, tx, ty).numpy(),
+        np.asarray(jp.ewa_cov2d(jnp.asarray(means), jnp.asarray(cov6.numpy()),
+                                jnp.asarray(view), fx, fy, tx, ty)))
+
+
+def test_projection_differentiable():
+    view, full, fx, fy, tx, ty = make_camera()
+    means = torch.tensor([[0.1, -0.2, 2.0]], requires_grad=True)
+    cov6 = tp.build_cov3d(torch.full((1, 3), 0.1),
+                          torch.tensor([[1.0, 0, 0, 0]]))
+    out = tp.project_gaussians(means, cov6, torch.from_numpy(view),
+                               torch.from_numpy(full), 64, 64, fx, fy, tx, ty)
+    (out.mean2d.sum() + out.depth.sum()).backward()
+    g = means.grad.numpy()
+    assert np.all(np.isfinite(g)) and np.abs(g).sum() > 0
