@@ -1,9 +1,11 @@
-"""Carry a JAX-package model across: numpy leaves -> the port's ``Model``.
+"""Carry a model between the packages as numpy leaves.
 
-``params`` is the JAX ``Model`` with every leaf already a numpy array (for
-example ``jax.tree.map(np.asarray, model)``); it is read by attribute only
-(``state._asdict()``, ``heads``, ``grid``, ``bounds``), so no JAX type is
-needed here. Both models then compute the same functions.
+``model_from_jax_params``: ``params`` is the JAX ``Model`` with every leaf
+already a numpy array (for example ``jax.tree.map(np.asarray, model)``); it
+is read by attribute only (``state._asdict()``, ``heads``, ``grid``,
+``bounds``), so no JAX type is needed here. Both models then compute the
+same functions. ``model_to_numpy`` goes the other way, for comparing a
+trained port model with the JAX one leaf by leaf.
 """
 from __future__ import annotations
 
@@ -46,3 +48,23 @@ def model_from_jax_params(params, cfg: GSConfig,
     bounds = AnchorBounds(x_min=t(params.bounds.x_min),
                           x_max=t(params.bounds.x_max))
     return Model(state=state, heads=heads, grid=grid, bounds=bounds)
+
+
+def model_to_numpy(model: Model) -> dict:
+    """The reverse direction: the port's ``Model`` as numpy leaves in the
+    JAX package's layout, ``{'state': {field: flat array}, 'heads': {name:
+    [{'w': [in, out], 'b': [out]}, ...]}, 'grid': {...}, 'bounds':
+    {'x_min', 'x_max'}}``, so the two models compare leaf by leaf."""
+    def a(x):
+        return x.detach().cpu().numpy().copy()
+
+    heads = {name: [{'w': a(lin.weight).T.copy(), 'b': a(lin.bias)}
+                    for lin in getattr(model.heads, name)
+                    if isinstance(lin, torch.nn.Linear)]
+             for name in ('opacity', 'cov', 'color', 'grid', 'deform')}
+    return {'state': {f: a(v) for f, v in
+                      model.state.flat_leaves().items()},
+            'heads': heads,
+            'grid': {k: a(v) for k, v in model.grid.items()},
+            'bounds': {'x_min': a(model.bounds.x_min),
+                       'x_max': a(model.bounds.x_max)}}

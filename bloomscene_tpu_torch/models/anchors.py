@@ -6,6 +6,10 @@ Per-anchor state, stored as flat 1D leaves like the JAX package's
 - anchor [C, 3], offset [C, K, 3], mask_logit [C, K, 1], feat [C, F],
   scaling_log [C, 6], rotation [C, 4], opacity_raw [C, 1];
 - alive [C] bool capacity mask.
+
+The float leaves are plain tensors without grad; ``train/optim.py`` turns
+the trained ones (all but rotation and opacity_raw) into leaves that
+require grad and updates them in place.
 """
 from __future__ import annotations
 
@@ -45,8 +49,12 @@ class AnchorState:
         self._opacity_raw = opacity_raw.reshape(-1)
         self._alive = alive
 
+    def flat_leaves(self) -> dict:
+        """field -> the flat 1D leaf tensor (not a view copy)."""
+        return {f: getattr(self, '_' + f) for f in self._fields}
+
     def _replace(self, **kw) -> "AnchorState":
-        vals = {f: getattr(self, '_' + f) for f in self._fields}
+        vals = self.flat_leaves()
         vals.update(kw)
         return AnchorState(**vals)
 
@@ -194,22 +202,30 @@ def init_from_points(points: np.ndarray, *, n_offsets: int, feat_dim: int,
     return state, voxel_size
 
 
-# --- activated getters (gaussian_model.py:342-399), forward values ---
+# --- activated getters (gaussian_model.py:342-399) ---
 
 def get_scaling(state: AnchorState) -> torch.Tensor:
     return torch.exp(torch.clamp(state.scaling_log, -20.0, 10.0))
 
 
 def get_mask(state: AnchorState) -> torch.Tensor:
-    """Binary child mask: the forward value of the straight-through
-    ``sig + (hard - sig)``, computed as such so it rounds as the JAX
-    package's does."""
+    """Binary child mask in {0, 1} (sigmoid > 0.01) with the sigmoid's
+    straight-through gradient: ``sig + (hard - sig).detach()``, which also
+    rounds as the JAX package's does."""
     sig = torch.sigmoid(state.mask_logit)
     hard = (sig > 0.01).to(torch.float32)
-    return sig + (hard - sig)
+    return sig + (hard - sig).detach()
+
+
+def get_mask_anchor(state: AnchorState) -> torch.Tensor:
+    """[C] float: 1 where any child mask of the anchor is on (:355-364);
+    no gradient."""
+    m = get_mask(state).detach()
+    return (torch.sum(m[:, :, 0], dim=1) > 0).to(torch.float32)
 
 
 def get_anchor_quantized(state: AnchorState,
                          bounds: AnchorBounds) -> torch.Tensor:
+    """16-bit quantized anchors, straight-through gradient (:394-399)."""
     q, _ = quantize_anchor(state.anchor, bounds.x_min, bounds.x_max)
     return q

@@ -1,11 +1,13 @@
 """Anchor -> neural Gaussian decode (gaussian_renderer/__init__.py:26-208).
 
-Phase 0 only: ``mode='train'`` uses the raw attributes, ``mode='eval'``
+Phase 0 only: ``mode='train'`` uses the raw attributes and is
+differentiable (gradients reach the anchor state through the
+straight-through quantizer and mask, and the heads); ``mode='eval'``
 quantizes them with STE_multistep at the adaptive step from the hash-grid
-context (gaussian_renderer:131-145). Invalid children keep opacity 0 and
-are culled by the rasterizer's validity mask, as in the JAX package.
-The phase 1/2 noise, the rate loss, the SH color branch and the feature
-bank come with training.
+context (gaussian_renderer:131-145) and runs without grad. Invalid children
+keep opacity 0 and are culled by the rasterizer's validity mask, as in the
+JAX package. The phase 1/2 noise, the rate loss, the SH color branch and
+the feature bank come later (ROADMAP).
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from ..device import strict_fp32
 from ..ops.graphics import normalize_quat
 from ..ops.quantization import ste_multistep
 from . import heads as heads_lib
-from .anchors import get_anchor_quantized, get_mask, get_scaling
+from .anchors import (get_anchor_quantized, get_mask, get_mask_anchor,
+                      get_scaling)
 from .model import Model, calc_interp_feat
 
 
@@ -31,6 +34,14 @@ class DecodedGaussians(NamedTuple):
     rotation: torch.Tensor     # [M, 4] (normalized)
     valid: torch.Tensor        # [M] bool (alive & mask & opacity > 0)
     neural_opacity: torch.Tensor  # [M] pre-mask tanh opacity
+
+
+class RateInfo(NamedTuple):
+    bit_per_param: torch.Tensor
+    bit_per_feat_param: torch.Tensor
+    bit_per_scaling_param: torch.Tensor
+    bit_per_offsets_param: torch.Tensor
+    mask_anchor_rate: torch.Tensor
 
 
 def masked_mean(x, w):
@@ -46,7 +57,18 @@ def attribute_means(state) -> tuple:
             masked_mean(state.offset, aw[:, None, None]))
 
 
-@torch.no_grad()
+def phase0_rate(state, visible: torch.Tensor | None = None) -> RateInfo:
+    """The rate of phase 0 (decode.py:91-95): zero bits, and the share of
+    visible anchors with a child mask on, without gradient (the reference
+    takes it over the visible-compacted set,
+    gaussian_renderer/__init__.py:44-46)."""
+    visible = state.alive if visible is None else visible & state.alive
+    rate = masked_mean(get_mask_anchor(state),
+                       visible.to(torch.float32)).detach()
+    zero = torch.zeros((), device=state.device)
+    return RateInfo(zero, zero, zero, zero, rate)
+
+
 def decode_neural_gaussians(model: Model, cam_center: torch.Tensor,
                             cfg: GSConfig, *, phase: int = 0,
                             mode: str = 'train',
@@ -60,7 +82,13 @@ def decode_neural_gaussians(model: Model, cam_center: torch.Tensor,
     if phase != 0 or mode not in ('train', 'eval'):
         raise NotImplementedError(
             f"decode phase {phase} mode {mode!r}: the port decodes phase 0 "
-            "in 'train' and 'eval' mode")
+            "in 'train' and 'eval' mode (phases 1/2: ROADMAP queue 1)")
+    with torch.set_grad_enabled(mode == 'train' and torch.is_grad_enabled()):
+        return _decode(model, cam_center, cfg, mode, visible, attr_means)
+
+
+def _decode(model: Model, cam_center: torch.Tensor, cfg: GSConfig,
+            mode: str, visible, attr_means) -> DecodedGaussians:
     st = model.state
     strict_fp32(st.device)
     C, K = st.capacity, st.n_offsets

@@ -50,6 +50,8 @@ class Heads(nn.Module):
         self.deform = MLP((ctx_dim, 2 * F, 2 * K), generator, device)
         with torch.no_grad():
             self.deform[-1].bias[0::2] += 10.0   # gaussian_model.py:265
+        # no graph is built until the trainer turns grad on (train/optim.py)
+        self.requires_grad_(False)
 
 
 def apply_opacity(heads: Heads, x):

@@ -1,7 +1,9 @@
 """Full neural render: anchor decode -> projection -> tile rasterizer.
 
-The forward of ``bloomscene_tpu/models/render.py`` (gaussian_renderer.render
-+ prefilter_voxel, gaussian_renderer/__init__.py:211-349).
+The port of ``bloomscene_tpu/models/render.py`` (gaussian_renderer.render
++ prefilter_voxel, gaussian_renderer/__init__.py:211-349). A train-mode
+render is differentiable in the model's leaves that require grad (and in
+``mean2d_offset``); an eval-mode render runs without grad.
 """
 from __future__ import annotations
 
@@ -17,15 +19,17 @@ from ..ops.tile_rasterizer import rasterize_tiles
 from ..ops.tiles import TileBins, compute_tile_rects
 from ..scene.cameras import CameraArrays, Intrinsics
 from .anchors import get_scaling
-from .decode import DecodedGaussians, attribute_means, decode_neural_gaussians
+from .decode import (DecodedGaussians, RateInfo, attribute_means,
+                     decode_neural_gaussians, phase0_rate)
 from .model import Model
 
 
 class RenderResult(NamedTuple):
     out: RenderOutput
     dec: DecodedGaussians
+    rate: RateInfo | None           # train mode only
     proj: ProjectedSplats
-    bins: TileBins
+    bins: TileBins                  # with the overflow counters
     # anchor indices of the visible-compacted set ([visible_capacity]
     # int64, entries == capacity are padding), or None when decode ran dense
     visible_idx: torch.Tensor | None = None
@@ -86,18 +90,31 @@ def count_pairs(model: Model, intr: Intrinsics, cam: CameraArrays,
     return torch.sum(touched)
 
 
-@torch.no_grad()
 def render(model: Model, intr: Intrinsics, cam: CameraArrays,
            cfg: GSConfig, *, phase: int = 0, mode: str = 'train',
            bg: torch.Tensor | None = None,
            visible: torch.Tensor | None = None,
+           mean2d_offset: torch.Tensor | None = None,
            tile_capacity: int | None = None,
            visible_capacity: int | None = None,
            pair_capacity: int | None = None,
            packed_capacity: int | None = None) -> RenderResult:
     """Render one view. ``visible_capacity`` / ``pair_capacity`` /
     ``packed_capacity`` override the cfg values (the eval render sizes them
-    from measuring passes over the orbit, pipeline.render_model)."""
+    from measuring passes over the orbit, pipeline.render_model).
+
+    ``mean2d_offset`` is a flat zero [n_child * 2] tensor added to the
+    projected means: its gradient is dL/dmean2d in pixels, the densify
+    statistic (render.py:104-108, 160-162)."""
+    with torch.set_grad_enabled(mode == 'train' and torch.is_grad_enabled()):
+        return _render(model, intr, cam, cfg, phase, mode, bg, visible,
+                       mean2d_offset, tile_capacity, visible_capacity,
+                       pair_capacity, packed_capacity)
+
+
+def _render(model, intr, cam, cfg, phase, mode, bg, visible, mean2d_offset,
+            tile_capacity, visible_capacity, pair_capacity,
+            packed_capacity) -> RenderResult:
     dev = model.state.device
     if bg is None:
         bg = torch.zeros(3, device=dev)
@@ -116,7 +133,11 @@ def render(model: Model, intr: Intrinsics, cam: CameraArrays,
     dec = decode_neural_gaussians(model, cam.camera_center, cfg,
                                   phase=phase, mode=mode, visible=visible,
                                   attr_means=attr_means)
+    rate = phase0_rate(model.state, visible) if mode == 'train' else None
     proj = _project(dec.xyz, dec.scaling, dec.rotation, intr, cam)
+    if mean2d_offset is not None:
+        proj = proj._replace(mean2d=proj.mean2d
+                             + mean2d_offset.reshape(-1, 2))
     proj = proj._replace(valid=proj.valid & dec.valid)
     out, bins = rasterize_tiles(
         proj, dec.color, dec.opacity, bg, intr.width, intr.height,
@@ -124,5 +145,5 @@ def render(model: Model, intr: Intrinsics, cam: CameraArrays,
         pair_capacity=pair_capacity or cfg.pair_capacity,
         tile_capacity=tile_capacity or cfg.max_splats_per_tile,
         packed_capacity=packed_capacity or cfg.packed_capacity)
-    return RenderResult(out=out, dec=dec, proj=proj, bins=bins,
+    return RenderResult(out=out, dec=dec, rate=rate, proj=proj, bins=bins,
                         visible_idx=visible_idx)

@@ -1,12 +1,18 @@
-"""K1: blend forward (CUDA ``csrc/blend.cu``) and its plain version.
+"""K1 blend forward (CUDA ``csrc/blend.cu``) and K2 blend backward (CUDA
+``csrc/blend_bwd.cu``), each beside its plain version.
 
-Replaces the TPU kernel ``bloomscene_tpu/ops/pallas/blend.py::_fwd_kernel``.
-Front-to-back blend of each tile (at slab position p, tile id tid[p]) over
+K1 replaces the TPU kernel ``bloomscene_tpu/ops/pallas/blend.py::_fwd_kernel``:
+front-to-back blend of each tile (at slab position p, tile id tid[p]) over
 its depth-sorted slab column, with the reference's per-pixel rules
 (power > 0 skip, alpha = min(0.99, op e^power), alpha < 1/255 skip, sticky
-stop at T (1 - alpha) < 1e-4 without blending that splat). The plain
-version runs the same per-slot recurrence over all pixels of all tiles at
-once, as the TPU kernel and ``tile_rasterizer._blend_fwd_impl`` do.
+stop at T (1 - alpha) < 1e-4 without blending that splat).
+
+K2 replaces ``blend.py::_bwd_kernel``: the back-to-front walk from final T
+with the 5-carry suffix-sum recurrence, writing per-entry gradients
+[10, cap, T] (see ``csrc/blend_bwd.cu`` for the arithmetic).
+
+The plain versions run the same per-slot recurrences over all pixels of
+all tiles at once, as the TPU kernels do.
 """
 from __future__ import annotations
 
@@ -18,8 +24,11 @@ from ..reference_rasterizer import ACC_SEED, ALPHA_MAX, ALPHA_MIN, T_EPS
 from .build import check, library, require, stream_ptr
 
 DATA_W = 10      # slab rows: mx, my, ca, cb, cc, op, depth, r, g, b
+GRAD_W = 10      # gradient rows: d mx, my, ca, cb, cc, op, depth, r, g, b
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] * 2)
 
 
 def blend_forward(slab: torch.Tensor, counts_p: torch.Tensor,
@@ -95,3 +104,100 @@ def blend_forward_plain(slab, counts_p, tid, tile, gx):
         Tr = torch.where(blend, test_T, Tr)
         ncon = torch.where(blend, s + 1, ncon)
     return Cr, Cg, Cb, D, acc, Tr, ncon
+
+
+def blend_backward(slab: torch.Tensor, counts_p: torch.Tensor,
+                   tid: torch.Tensor, tile: int, gx: int,
+                   final_T: torch.Tensor, ncon: torch.Tensor,
+                   u_r: torch.Tensor, u_g: torch.Tensor, u_b: torch.Tensor,
+                   u_d: torch.Tensor, u_one: torch.Tensor,
+                   bg_term: torch.Tensor) -> torch.Tensor:
+    """slab [10, cap, T] f32, counts_p and tid [T] int32, final_T [P, T]
+    f32 and ncon [P, T] int32 (K1's residuals), the six cotangent planes
+    [P, T] f32 (r, g, b, depth value, ones, background term) -> per-entry
+    gradients [10, cap, T] f32; rows past a tile's walk are zero."""
+    if slab.device.type == "cpu":
+        return blend_backward_plain(slab, counts_p, tid, tile, gx, final_T,
+                                    ncon, u_r, u_g, u_b, u_d, u_one, bg_term)
+    dev = slab.device
+    _, cap, T = slab.shape
+    P = tile * tile
+    if P > 1024 or P % 32:
+        raise ValueError(f"tile {tile}: one thread per pixel needs "
+                         "tile*tile <= 1024 and a multiple of 32")
+    require(slab, torch.float32, (DATA_W, cap, T), "slab", dev)
+    require(counts_p, torch.int32, (T,), "counts_p", dev)
+    require(tid, torch.int32, (T,), "tid", dev)
+    require(ncon, torch.int32, (P, T), "ncon", dev)
+    planes = (final_T, u_r, u_g, u_b, u_d, u_one, bg_term)
+    for name, t in zip(("final_T", "u_r", "u_g", "u_b", "u_d", "u_one",
+                        "bg_term"), planes):
+        require(t, torch.float32, (P, T), name, dev)
+    grad = torch.zeros((GRAD_W, cap, T), dtype=torch.float32, device=dev)
+    fn = library("blend_bwd").bs_blend_backward
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    check(fn(slab.data_ptr(), counts_p.data_ptr(), tid.data_ptr(),
+             final_T.data_ptr(), ncon.data_ptr(), u_r.data_ptr(),
+             u_g.data_ptr(), u_b.data_ptr(), u_d.data_ptr(),
+             u_one.data_ptr(), bg_term.data_ptr(), cap, T, tile, gx,
+             grad.data_ptr(), stream_ptr(dev)), "blend_backward")
+    blend_backward.launches += 1
+    return grad
+
+
+blend_backward.launches = 0
+
+
+def blend_walk(counts_p: torch.Tensor, ncon: torch.Tensor) -> torch.Tensor:
+    """[T] slots K2 walks per tile: min(count, max n_contrib of its pixels)."""
+    return torch.minimum(counts_p, ncon.amax(0))
+
+
+def blend_backward_plain(slab, counts_p, tid, tile, gx, final_T, ncon, u_r,
+                         u_g, u_b, u_d, u_one, bg_term, magnitude=False):
+    """K2's plain version. ``magnitude=True`` gives, for each entry, the
+    same row with every pixel term and every factor taken by its absolute
+    value: the scale of the float32 rounding of a sum of those terms in
+    another order."""
+    _, cap, T = slab.shape
+    px, py = pixel_coords(tid, tile, gx)
+    grad = torch.zeros((GRAD_W, cap, T), dtype=torch.float32,
+                       device=slab.device)
+    n_walk = int(blend_walk(counts_p, ncon).max()) if T else 0
+    Tr = final_T
+    Sr = Sg = Sb = Sd = S1 = torch.zeros_like(final_T)
+    tb = -final_T * bg_term
+    for s in reversed(range(n_walk)):
+        mx, my, ca, cb, cc, op, de, cr, cg, cbl = slab[:, s, :]
+        dx = mx - px
+        dy = my - py
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        G = torch.exp(power)
+        oG = op * G
+        alpha = torch.clamp(oG, max=ALPHA_MAX)
+        blended = (power <= 0.0) & (alpha >= ALPHA_MIN) & (s < ncon)
+        inv1ma = 1.0 / (1.0 - alpha)
+        Tr = torch.where(blended, Tr * inv1ma, Tr)
+        w = torch.where(blended, alpha * Tr, 0.0)
+        Q = u_r * Sr + u_g * Sg + u_b * Sb + u_d * Sd + u_one * S1
+        dL_da = (Tr * (u_r * cr + u_g * cg + u_b * cbl + u_d * de + u_one)
+                 + (tb - Q) * inv1ma)
+        dL_da = torch.where(blended, dL_da, 0.0)
+        Sr = Sr + w * cr
+        Sg = Sg + w * cg
+        Sb = Sb + w * cbl
+        Sd = Sd + w * de
+        S1 = S1 + w
+        h = torch.where(oG < ALPHA_MAX, G, 0.0) * dL_da
+        hdx = h * dx
+        hdy = h * dy
+        terms = (h, hdx, hdy, hdx * dx, hdx * dy, hdy * dy, w * u_d, w * u_r,
+                 w * u_g, w * u_b)
+        if magnitude:
+            terms = [x.abs() for x in terms]
+            op, ca, cb, cc = op.abs(), ca.abs(), cb.abs(), cc.abs()
+        m0, m1, m2, m3, m4, m5, sd, sr, sg, sb = (x.sum(0) for x in terms)
+        grad[:, s, :] = torch.stack([
+            -op * (ca * m1 + cb * m2), -op * (cc * m2 + cb * m1),
+            -0.5 * op * m3, -op * m4, -0.5 * op * m5, m0, sd, sr, sg, sb], 0)
+    return grad.abs() if magnitude else grad

@@ -1,26 +1,34 @@
-"""Blend forward around K1: position space -> image planes.
+"""The tile blend with its gradient: K1 forward, K2 backward, reduction.
 
-The forward half of ``bloomscene_tpu/ops/pallas/wrapper.py`` (``_fwd_impl``,
-:56-84): the kernel writes its planes per occupancy-sorted tile position;
-this un-permutes them, assembles the [H, W] images and composites the
-background and the gated depth.
+The port of ``bloomscene_tpu/ops/pallas/wrapper.py`` (``tile_blend_pallas``
+and its custom VJP). Forward (``_fwd_impl``, :56-84): K1 writes its planes
+per occupancy-sorted tile position; they are un-permuted, assembled into
+[H, W] images, and the background and the gated depth are composited.
+Backward (``_bwd``, :97-188): the image cotangents go to position space as
+the 5-channel algebra (r, g, b, depth value, ones) plus the background
+term, K2 writes per-entry gradients [10, cap, T], and the emission-order
+reduction turns them into per-Gaussian gradients without a scatter: one
+clamped gather into emission order with the dead lanes masked, an
+inclusive and an exclusive cumsum, and the difference at each Gaussian's
+emission range. The reduction is plain torch, as it is plain XLA outside
+the Pallas kernel.
+
+The slab, the bins and the residuals carry no gradient; gradients reach
+mean2d, conic, depth, color, opacity and bg only through ``TileBlend``.
 """
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..reference_rasterizer import ACC_GATE, ACC_SEED, RenderOutput
-from .blend import blend_forward
+from .blend import blend_backward, blend_forward
 
 
-def blend_tiles(slab: torch.Tensor, counts: torch.Tensor, perm: torch.Tensor,
-                pos: torch.Tensor, bg: torch.Tensor, tile: int, gx: int,
-                gy: int, W: int, H: int) -> RenderOutput:
-    """slab [10, cap, T] in position space, counts [T] per tile id, perm
-    (position -> tile id) and pos (tile id -> position) -> RenderOutput."""
-    r, g, b, D, acc, Tf, _ = blend_forward(slab, counts[perm].contiguous(),
-                                           perm, tile, gx)
-    planes = torch.stack([r, g, b, D, acc, Tf], 0)[:, :, pos.long()]
+def _assemble(planes: torch.Tensor, pos: torch.Tensor, bg: torch.Tensor,
+              tile: int, gx: int, gy: int, W: int, H: int) -> RenderOutput:
+    """[6, P, T] position-space planes (r, g, b, D, acc, T) -> images."""
+    planes = planes[:, :, pos.long()]
     img = planes.reshape(6, tile, tile, gy, gx).permute(0, 3, 1, 4, 2)
     img = img.reshape(6, gy * tile, gx * tile)[:, :H, :W]
     acc_img = img[4]
@@ -28,3 +36,94 @@ def blend_tiles(slab: torch.Tensor, counts: torch.Tensor, perm: torch.Tensor,
     depth = torch.where(acc_img > ACC_GATE, img[3] / acc_img, 0.0)
     return RenderOutput(color=color, depth=depth, alpha=acc_img - ACC_SEED,
                         final_T=img[5])
+
+
+def cotangent_planes(g_color, g_depth, g_alpha, g_final_T, bg, acc, D,
+                     perm, tile: int, gx: int, gy: int):
+    """Image cotangents -> the six [P, T] planes K2 reads, in position
+    space: u_r, u_g, u_b, u_d (depth value), u_one and the background term
+    (wrapper.py:106-124)."""
+    H, W = g_depth.shape
+    planes = torch.stack([g_color[..., 0], g_color[..., 1], g_color[..., 2],
+                          g_depth, g_alpha, g_final_T], 0)
+    planes = torch.nn.functional.pad(planes, (0, gx * tile - W,
+                                              0, gy * tile - H))
+    pp = planes.reshape(6, gy, tile, gx, tile).permute(0, 2, 4, 1, 3)
+    pp = pp.reshape(6, tile * tile, gy * gx)[:, :, perm.long()]
+    g_r, g_g, g_b, g_d, g_a, g_T = pp.unbind(0)
+    gate = acc > ACC_GATE
+    u_d = torch.where(gate, g_d / acc, 0.0)
+    u_one = torch.where(gate, -g_d * D / (acc * acc), 0.0) + g_a
+    bg_term = bg[0] * g_r + bg[1] * g_g + bg[2] * g_b + g_T
+    return tuple(t.contiguous() for t in (g_r, g_g, g_b, u_d, u_one,
+                                          bg_term))
+
+
+def reduce_entry_grads(grad: torch.Tensor, src_lane: torch.Tensor,
+                       starts_by_id: torch.Tensor,
+                       ends_by_id: torch.Tensor) -> torch.Tensor:
+    """Per-entry gradients [10, cap, T] -> per-Gaussian sums [10, n] in
+    emission order (wrapper.py:146-172). Culled, truncated and
+    over-capacity pairs carry the lane cap*T: gathered clamped, then
+    masked."""
+    n_lanes = grad.shape[1] * grad.shape[2]
+    flat = grad.reshape(grad.shape[0], n_lanes)
+    dead = src_lane >= n_lanes
+    pg = torch.index_select(flat, 1, torch.clamp(src_lane,
+                                                 max=n_lanes - 1).long())
+    pg = torch.where(dead[None, :], 0.0, pg)
+    inc = torch.cumsum(pg, 1)
+    exc = inc - pg
+    pc = src_lane.shape[0]
+    s = torch.clamp(starts_by_id, max=pc).long()
+    e = torch.clamp(ends_by_id, max=pc).long()
+    return torch.where((e > s)[None, :],
+                       inc[:, torch.clamp(e - 1, min=0)]
+                       - exc[:, torch.clamp(s, max=pc - 1)], 0.0)
+
+
+class TileBlend(torch.autograd.Function):
+    """K1 + image assembly forward; K2 + reduction backward."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, depth, color, opac, bg, bins, geom):
+        tile, gx, gy, W, H = geom
+        counts_p = bins.counts[bins.perm.long()].contiguous()
+        r, g, b, D, acc, Tf, ncon = blend_forward(bins.slab, counts_p,
+                                                  bins.perm, tile, gx)
+        out = _assemble(torch.stack([r, g, b, D, acc, Tf], 0), bins.pos, bg,
+                        tile, gx, gy, W, H)
+        ctx.geom = geom
+        ctx.save_for_backward(bins.slab, counts_p, bins.perm, Tf, acc, D,
+                              ncon, bg, bins.src_lane, bins.starts_by_id,
+                              bins.ends_by_id)
+        return out.color, out.depth, out.alpha, out.final_T
+
+    @staticmethod
+    def backward(ctx, g_color, g_depth, g_alpha, g_final_T):
+        tile, gx, gy, W, H = ctx.geom
+        (slab, counts_p, perm, Tf, acc, D, ncon, bg, src_lane, starts,
+         ends) = ctx.saved_tensors
+        if src_lane is None:
+            raise ValueError("TileBlend gradients need the grad index: bin "
+                             "with bin_splats(..., grad_index=True)")
+        with record_function("tile_blend.cotangents"):
+            u = cotangent_planes(g_color, g_depth, g_alpha, g_final_T, bg,
+                                 acc, D, perm, tile, gx, gy)
+        with record_function("tile_blend.k2"):
+            grad = blend_backward(slab, counts_p, perm, tile, gx, Tf, ncon,
+                                  *u)
+        with record_function("tile_blend.reduce"):
+            sums = reduce_entry_grads(grad, src_lane, starts, ends)
+            d_bg = torch.stack([torch.sum(Tf * u[0]), torch.sum(Tf * u[1]),
+                                torch.sum(Tf * u[2])])
+        return (sums[0:2].T, sums[2:5].T, sums[6], sums[7:10].T, sums[5],
+                d_bg, None, None)
+
+
+def tile_blend(mean2d, conic, depth, color, opac, bg, bins, tile: int,
+               gx: int, gy: int, W: int, H: int) -> RenderOutput:
+    """Blend the binned splats into one view. ``bins`` must carry the slab
+    (``bin_splats(attr_rows=...)``) and, for gradients, the grad index."""
+    return RenderOutput(*TileBlend.apply(mean2d, conic, depth, color, opac,
+                                         bg, bins, (tile, gx, gy, W, H)))

@@ -1,17 +1,20 @@
-"""Tile rasterizer forward: bin, then blend.
+"""Tile rasterizer: bin, then blend, with the gradient of the blend.
 
-The forward of ``bloomscene_tpu/ops/tile_rasterizer.py::rasterize_tiles``
-on its kernel path: the blend attributes ride the binning into the slab
-(K3 pair expansion, K4 slab expansion) and K1 blends each tile. Which code
-runs follows the tensors' device: on CUDA the kernels, on the CPU their
-plain versions. Forward only; the gradient comes with the training path.
+The port of ``bloomscene_tpu/ops/tile_rasterizer.py::rasterize_tiles`` on
+its kernel path: the blend attributes ride the binning into the slab (K3
+pair expansion, K4 slab expansion), K1 blends each tile, and K2 with the
+emission-order reduction gives the gradient (``ops/cuda/wrapper.py``).
+Binning runs without grad on detached values (the bins and the slab carry
+no gradient, tile_rasterizer.py:373-391); the live mean2d, conic, depth,
+color, opacity and bg enter ``TileBlend``. Which code runs follows the
+tensors' device: on CUDA the kernels, on the CPU their plain versions.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .cuda.wrapper import blend_tiles
+from .cuda.wrapper import tile_blend
 from .projection import ProjectedSplats
 from .reference_rasterizer import RenderOutput
 from .tiles import TileBins, bin_splats, tile_grid
@@ -27,7 +30,6 @@ def attr_rows(proj: ProjectedSplats, colors: torch.Tensor,
         colors[:, 0], colors[:, 1], colors[:, 2]], 0).contiguous()
 
 
-@torch.no_grad()
 def rasterize_tiles(proj: ProjectedSplats,
                     colors: torch.Tensor,
                     opacities: torch.Tensor,
@@ -39,7 +41,9 @@ def rasterize_tiles(proj: ProjectedSplats,
                     packed_capacity: int | None = None
                     ) -> tuple[RenderOutput, TileBins]:
     """Bin + blend one view. Overflow is depth-aware (the farthest pairs
-    drop first) and reported in the returned ``TileBins``."""
+    drop first) and reported in the returned ``TileBins``. The output is
+    differentiable in proj.mean2d, proj.conic, proj.depth, colors,
+    opacities and bg when grad is enabled."""
     n = proj.mean2d.shape[0]
     gx, gy = tile_grid(W, H, tile)
     if pair_capacity is None:
@@ -48,20 +52,26 @@ def rasterize_tiles(proj: ProjectedSplats,
         limit = 2 * gx * gy * tile_capacity
         want = 1 << max(16, int(np.ceil(np.log2(max(4 * n, 1)))))
         pair_capacity = max(1024, min(want, limit))
+    live = (proj.mean2d, proj.conic, proj.depth, colors, opacities, bg)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in live)
     opac_eff = torch.where(proj.valid, opacities, 0.0)
-    bins = bin_splats(proj, W, H, tile, pair_capacity, tile_capacity,
-                      opacities=opac_eff, packed_capacity=packed_capacity,
-                      attr_rows=attr_rows(proj, colors, opac_eff)
-                      if n > 0 else None)
+    with torch.no_grad():
+        p_sg = ProjectedSplats(*(t.detach() for t in proj))
+        o_sg = opac_eff.detach()
+        bins = bin_splats(p_sg, W, H, tile, pair_capacity, tile_capacity,
+                          opacities=o_sg, packed_capacity=packed_capacity,
+                          grad_index=grad and n > 0,
+                          attr_rows=attr_rows(p_sg, colors.detach(), o_sg)
+                          if n > 0 else None)
     if n == 0:
         # empty scene: the composite is the background
+        dev = bg.device
         out = RenderOutput(
             color=bg.to(torch.float32).expand(H, W, 3).clone(),
-            depth=torch.zeros((H, W), dtype=torch.float32, device=bg.device),
-            alpha=torch.zeros((H, W), dtype=torch.float32, device=bg.device),
-            final_T=torch.ones((H, W), dtype=torch.float32,
-                               device=bg.device))
+            depth=torch.zeros((H, W), dtype=torch.float32, device=dev),
+            alpha=torch.zeros((H, W), dtype=torch.float32, device=dev),
+            final_T=torch.ones((H, W), dtype=torch.float32, device=dev))
         return out, bins
-    out = blend_tiles(bins.slab, bins.counts, bins.perm, bins.pos, bg, tile,
-                      gx, gy, W, H)
+    out = tile_blend(proj.mean2d, proj.conic, proj.depth, colors, opac_eff,
+                     bg, bins, tile, gx, gy, W, H)
     return out, bins

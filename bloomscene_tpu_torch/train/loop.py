@@ -1,0 +1,286 @@
+"""One training step of the anchor model, and the host-side training loop.
+
+The port of ``bloomscene_tpu/train/loop.py`` for phase 0 (the reference hot
+loop, bloomscene.py:222-361): per step, the anchor prefilter, the neural
+render through the tile rasterizer's custom backward (K1 forward, K2
+backward), the loss stack (L1 + DSSIM + scaling regularizer + rate + the
+optional depth-prior regularizers), the gradients, the non-finite update
+skip, the 13-group Adam and the densification statistics.
+
+Not ported yet (each a ROADMAP queue 1 item): ``adjust_anchor`` (the
+densification surgery), phases 1 and 2 (quantization noise, the rate
+loss), ``make_train_scan`` (a device loop) and ``make_dp_train_step``
+(data parallelism). ``Trainer.run`` raises ``NotImplementedError`` before
+it would reach any of them.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
+
+from ..config import GSConfig
+from ..device import resolve_device
+from ..models import densify
+from ..models.anchors import update_anchor_bounds
+from ..models.densify import DensifyStats
+from ..models.model import Model
+from ..models.render import prefilter_anchors, render
+from ..scene.cameras import CameraArrays, Intrinsics
+from . import losses
+from .optim import Adam, make_trainable
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    loss_rgb: torch.Tensor
+    loss_dep_value: torch.Tensor
+    loss_dep_domin: torch.Tensor
+    loss_dep_smooth: torch.Tensor
+    bit_per_param: torch.Tensor
+    psnr: torch.Tensor
+    n_visible_anchors: torch.Tensor
+    tile_overflow: torch.Tensor
+    pair_overflow: torch.Tensor
+    packed_overflow: torch.Tensor
+    num_pairs: torch.Tensor        # splat-tile pairs before the cull
+    skipped: torch.Tensor          # 1 where the update was skipped
+
+
+def phase_of_step(step: int, cfg: GSConfig) -> int:
+    """Training phase (decode noise/context schedule)."""
+    if step <= cfg.noise_from_step:
+        return 0
+    if step <= cfg.context_from_step:
+        return 1
+    return 2
+
+
+def compute_losses(res, gt_image, gt_depth, cfg: GSConfig):
+    """The reference loss stack (bloomscene.py:283-325)."""
+    image = res.out.color
+    l1 = losses.l1_loss(image, gt_image)
+    loss_rgb = ((1.0 - cfg.lambda_dssim) * l1
+                + cfg.lambda_dssim * (1.0 - losses.ssim(image, gt_image)))
+    loss = loss_rgb
+    # scaling regularizer: prod of decoded child scales (bloomscene.py:289)
+    scaling_reg = torch.mean(torch.where(
+        res.dec.valid, torch.prod(res.dec.scaling, dim=1), 0.0))
+    loss = loss + cfg.lambda_scaling_reg * scaling_reg
+    loss = loss + cfg.lambda_entropy * res.rate.bit_per_param
+
+    zero = torch.zeros((), device=image.device)
+    dep_value = dep_domin = dep_smooth = zero
+    if cfg.use_dpr:
+        gt_d = losses.minmax_normalize(gt_depth)
+        rd = losses.minmax_normalize(res.out.depth)
+        dep_value = cfg.lambda_dep_value * losses.huber_l1_edge_aware(
+            rd, gt_d, gt_image)
+        dep_domin = cfg.lambda_dep_domin * losses.cmd(
+            rd[None], gt_d[None, None], normalized=cfg.cmd_normalized)
+        dep_smooth = cfg.lambda_dep_smooth * losses.bilateral_smoothness(rd)
+        loss = loss + dep_value + dep_domin + dep_smooth
+
+    mse = torch.mean((image - gt_image) ** 2)
+    psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+    return loss, dict(loss_rgb=loss_rgb, loss_dep_value=dep_value,
+                      loss_dep_domin=dep_domin, loss_dep_smooth=dep_smooth,
+                      psnr=psnr)
+
+
+def make_train_step(cfg: GSConfig, intr: Intrinsics, optimizer: Adam,
+                    bg: torch.Tensor):
+    """step(model, stats, cam, gt_image, gt_depth, *, phase, track_stats)
+    -> (model, stats, StepMetrics); the model's leaves and the optimizer's
+    moments are updated in place."""
+
+    def train_step(model: Model, stats: DensifyStats, cam: CameraArrays,
+                   gt_image, gt_depth, *, phase: int, track_stats: bool):
+        return _step_core(cfg, intr, optimizer, bg, model, stats, cam,
+                          gt_image, gt_depth, phase, track_stats)
+
+    return train_step
+
+
+def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
+               model: Model, stats: DensifyStats, cam: CameraArrays,
+               gt_image, gt_depth, phase: int, track_stats: bool):
+    """One SGD step (``_step_core``, loop.py:100-168). Its parts run under
+    ``record_function`` spans (``train.prefilter``, ``train.forward``,
+    ``train.backward``, ``train.update``, ``train.stats``) that a
+    ``torch.profiler`` run reads (``profile_render_torch.py --train``)."""
+    if phase != 0:
+        raise NotImplementedError(
+            f"training phase {phase}: the port trains phase 0 only "
+            "(phases 1/2: ROADMAP queue 1)")
+    with record_function("train.prefilter"):
+        visible = prefilter_anchors(model, intr, cam)
+    n_anch = model.state.capacity
+    if (cfg.visible_capacity is not None
+            and n_anch > cfg.visible_capacity):
+        n_anch = cfg.visible_capacity
+    n_child = n_anch * model.state.n_offsets
+    m2d_offset = torch.zeros((n_child * 2,), device=visible.device,
+                             requires_grad=True)
+
+    def render_fn(m2d):
+        return render(model, intr, cam, cfg, phase=phase, mode='train',
+                      bg=bg, visible=visible, mean2d_offset=m2d)
+
+    with torch.enable_grad():
+        with record_function("train.forward"):
+            if cfg.remat:
+                # recompute decode + render in the backward: the forward
+                # runs twice per step (K1, K3 and K4 launch twice, K2 once)
+                res = checkpoint(render_fn, m2d_offset, use_reentrant=False)
+            else:
+                res = render_fn(m2d_offset)
+            loss, aux = compute_losses(res, gt_image, gt_depth, cfg)
+        params = [t for _, _, t in optimizer.params]
+        with record_function("train.backward"):
+            grads = torch.autograd.grad(loss, params + [m2d_offset],
+                                        allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(params + [m2d_offset], grads)]
+    g_m2d = grads.pop()
+
+    # a non-finite loss or gradient would poison every parameter through
+    # Adam in one step: zero the gradients and still step (loop.py:136-147)
+    with torch.no_grad(), record_function("train.update"):
+        gsum = sum(torch.sum(torch.abs(g)) for g in grads)
+        ok = torch.isfinite(loss) & torch.isfinite(gsum)
+        grads = [torch.where(ok, g, 0.0) for g in grads]
+        optimizer.step(grads)
+
+    if track_stats:
+        with record_function("train.stats"):
+            stats = densify.accumulate_stats(
+                stats, res.dec.neural_opacity.detach(), res.dec.valid,
+                res.proj.valid, visible, g_m2d, intr.width, intr.height,
+                anchor_idx=res.visible_idx)
+
+    metrics = StepMetrics(
+        loss=loss.detach(), loss_rgb=aux['loss_rgb'].detach(),
+        loss_dep_value=aux['loss_dep_value'].detach(),
+        loss_dep_domin=aux['loss_dep_domin'].detach(),
+        loss_dep_smooth=aux['loss_dep_smooth'].detach(),
+        bit_per_param=res.rate.bit_per_param, psnr=aux['psnr'].detach(),
+        n_visible_anchors=torch.sum(visible),
+        tile_overflow=res.bins.tile_overflow,
+        pair_overflow=res.bins.pair_overflow,
+        packed_overflow=res.bins.packed_overflow,
+        num_pairs=res.bins.num_pairs,
+        skipped=(~ok).to(torch.int32))
+    return model, stats, metrics
+
+
+class Trainer:
+    """Host-side orchestration of the optimization (loop.py:333-508), on one
+    device. The model's leaves are trained in place."""
+
+    def __init__(self, model: Model, cfg: GSConfig, intr: Intrinsics,
+                 voxel_size: float, spatial_lr_scale: float = 1.0,
+                 bg: np.ndarray | None = None, seed: int = 0,
+                 device: str = "cuda"):
+        dev = resolve_device(device)
+        if model.state.device != dev:
+            raise ValueError(f"model lives on {model.state.device}, "
+                             f"training requested on {dev}")
+        self.cfg = cfg
+        self.intr = intr
+        self.voxel_size = voxel_size
+        model = model._replace(bounds=update_anchor_bounds(model.state))
+        self.model = make_trainable(model)
+        self.optimizer = Adam(cfg, spatial_lr_scale, self.model)
+        self.stats = densify.init_stats(model.state.capacity, cfg.n_offsets,
+                                        dev)
+        self.bg = torch.as_tensor(
+            bg if bg is not None else
+            (np.ones(3) if cfg.white_background else np.zeros(3)),
+            dtype=torch.float32, device=dev)
+        self.step_fn = make_train_step(cfg, intr, self.optimizer, self.bg)
+        # camera draws: numpy, not the JAX package's key splits, so the
+        # draw sequence differs from JAX's for more than one camera
+        self.rng = np.random.default_rng(seed)
+        self.history: list[dict] = []
+        self.step = 0
+
+    def _check_supported(self, first: int, last: int) -> None:
+        cfg = self.cfg
+        for it in range(first, last + 1):
+            if phase_of_step(it, cfg) > 0:
+                raise NotImplementedError(
+                    f"step {it} is in training phase "
+                    f"{phase_of_step(it, cfg)}: the port trains phase 0 "
+                    "only (phases 1/2: ROADMAP queue 1)")
+            if self._densify_due(it):
+                raise NotImplementedError(
+                    f"step {it} is a densification step: adjust_anchor is "
+                    "not ported yet (models/densify.py: ROADMAP queue 1)")
+
+    def _densify_due(self, it: int) -> bool:
+        cfg = self.cfg
+        track = cfg.start_stat < it < cfg.update_until
+        in_pause = cfg.densify_pause_from <= it < cfg.densify_pause_until
+        return (track and not in_pause and it > cfg.update_from
+                and it % cfg.update_interval == 0)
+
+    def run(self, cameras, iterations: int | None = None,
+            log_every: int = 100, callback=None) -> Model:
+        """cameras: list of (CameraArrays, gt_image [H, W, 3], gt_depth
+        [H, W]) on the trainer's device. Resumes from ``self.step + 1``.
+        Raises ``NotImplementedError`` up front when the run would reach a
+        phase above 0 or a densification step."""
+        cfg = self.cfg
+        iterations = iterations or cfg.iterations
+        self._check_supported(self.step + 1, iterations)
+        for it in range(self.step + 1, iterations + 1):
+            self.step = it
+            cam, gt_image, gt_depth = cameras[int(
+                self.rng.integers(len(cameras)))]
+            if it == cfg.context_from_step:
+                self.model = self.model._replace(
+                    bounds=update_anchor_bounds(self.model.state))
+            track = cfg.start_stat < it < cfg.update_until
+            self.model, self.stats, metrics = self.step_fn(
+                self.model, self.stats, cam, gt_image, gt_depth,
+                phase=phase_of_step(it, cfg), track_stats=track)
+            if it % log_every == 0 or it == iterations:
+                self._emit_record(it, metrics._asdict(), callback)
+        return self.model
+
+    def _emit_record(self, it, metric_items, callback):
+        cfg = self.cfg
+        rec = {k: float(v) for k, v in metric_items.items()}
+        rec['iteration'] = it
+        if (cfg.visible_capacity is not None
+                and rec['n_visible_anchors'] > cfg.visible_capacity):
+            warnings.warn(
+                f"step {it}: {int(rec['n_visible_anchors'])} visible anchors "
+                f"exceed visible_capacity={cfg.visible_capacity}; "
+                "overflowing anchors are skipped this step — raise "
+                "GSConfig.visible_capacity for full coverage",
+                RuntimeWarning, stacklevel=2)
+        if rec['pair_overflow'] > 0 or rec['tile_overflow'] > 0:
+            warnings.warn(
+                f"rasterizer capacity overflow at step {it}: "
+                f"pair_overflow={int(rec['pair_overflow'])} "
+                f"tile_overflow={int(rec['tile_overflow'])} — farthest "
+                "splats are being dropped; consider raising "
+                "GSConfig.pair_capacity/max_splats_per_tile",
+                RuntimeWarning, stacklevel=2)
+        if rec['packed_overflow'] > 0:
+            warnings.warn(
+                f"step {it}: packed pair buffer overflow "
+                f"({int(rec['packed_overflow'])} surviving pairs dropped, "
+                "highest tile ids first) — raise the packed_capacity "
+                "passed to rasterize_tiles (defaults to pair_capacity, "
+                "which never overflows this buffer)",
+                RuntimeWarning, stacklevel=2)
+        self.history.append(rec)
+        if callback:
+            callback(rec)

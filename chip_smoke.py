@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path on one CUDA card and hold its
-kernels against their plain versions.
+"""Drive the PyTorch port's render and training paths on one CUDA card and
+hold its kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,7 @@ nonzero:
    with the repo).
 3. render: ``render_model(mode='eval')`` over 8 frames of
    ``cameras/rotate360.json`` at 512x512, with every launch counter set to
-   0 just before and read just after; each kernel must have launched once
+   0 just before and read just after; K1, K3 and K4 must have launched once
    per frame.
 4. kernels: on one frame's real inputs, K3 (pair expansion) and K4 (slab
    expansion) must equal their plain versions bit for bit, K1 (blend
@@ -26,9 +26,34 @@ nonzero:
 5. reference: a 128x128 view rasterized on the card and by the plain
    PyTorch path on the CPU from the same projected splats must agree
    within the same tolerances.
+6. grad_reference: at 128x128, the gradients of a fixed loss with respect
+   to mean2d, conic, depth, color, opacity and bg through ``TileBlend`` (K1
+   forward, K2 backward) on the card against the plain path on the CPU,
+   atol 2e-6 + rtol 2e-4 (tests/test_pallas_blend.py:79-80).
+7. train: the same model, perturbed (feature noise, a re-drawn color
+   head), trained by ``Trainer.run`` for 30 host-loop steps toward the 8
+   orbit frames of phase 3 and their depths, at
+   ``GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)`` (phase 0,
+   remat on, no densification step due). Every counter is set to 0 just
+   before and read just after: K2 must launch once per step, K1, K3 and K4
+   once per forward (twice per step under remat). One line per step, one
+   summary line; losses must be finite, no update skipped, and the mean
+   loss of the last 5 steps below that of the first 5.
+8. kernels at the training shapes, on one training step's real inputs
+   (pair capacity 2,097,152, where K3 writes the two-key form): K3, K4 and
+   K1 against their plain versions as in phase 4; K2 (blend backward)
+   within atol 2e-6 + rtol 2e-4 at the loss's scale, and again with the
+   cotangent planes scaled by H * W * 3 (K2 is linear in them) and the
+   rtol applied to the magnitudes of each entry's pixel terms; most
+   entries of every gradient row resolved, planted faults caught, and
+   bitwise equal to itself from one launch to the next.
 
-The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
-exits 1 before printing anything on stdout.
+The line before the last holds every kernel's row (``kernels``: K1, K3 and
+K4 at the render's shapes with their training shapes under
+``train_shape``, K2 at the training shape), the one before it the card's
+name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 before
+printing anything on stdout.
 """
 from __future__ import annotations
 
@@ -49,6 +74,16 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BLEND_OPS_PER_STEP = 30        # float operations per (pixel, splat) step
+# K2, per walked (pixel, slot) step, counted from csrc/blend_bwd.cu: offsets
+# and power 11, exp 1, alpha and the gates 4, 1/(1 - alpha) 2, T and w 2,
+# Q 9, dL/dalpha 12, the suffix carries 9, h 2, the moments and channel
+# products 9, the block sums 10 (one add per value per channel)
+BLEND_BWD_OPS_PER_STEP = 71
+GRAD_ATOL, GRAD_RTOL = 2e-6, 2e-4   # tests/test_pallas_blend.py:79-80
+K2_ROWS = ("d mx", "d my", "d ca", "d cb", "d cc", "d op", "d depth", "d r",
+           "d g", "d b")
+K2_RESOLVED_SHARE = 0.5
+TRAIN_STEPS = 30
 
 
 def emit(obj: dict) -> None:
@@ -146,9 +181,22 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def kernel_checks(model, cam, cfg, vcap, pcap, launches):
-    """K3, K4 and K1 against their plain versions on one frame's inputs."""
+def kernel_checks(model, cam, cfg, vcap, pcap):
+    """K3, K4 and K1 against their plain versions on one orbit frame's
+    inputs (the eval render's shapes)."""
     from bloomscene_tpu_torch.models.render import prefilter_anchors, render
+    arrs = cam.device_arrays(model.state.device)
+    vis = prefilter_anchors(model, cam.intrinsics, arrs) if vcap else None
+    res = render(model, cam.intrinsics, arrs, cfg, mode="eval", visible=vis,
+                 visible_capacity=vcap, pair_capacity=pcap,
+                 packed_capacity=pcap)
+    return forward_kernel_rows(res, cam.intrinsics, cfg, pcap)
+
+
+@torch.no_grad()
+def forward_kernel_rows(res, intr, cfg, pcap):
+    """K3, K4 and K1 against their plain versions on one render's projected
+    splats, colors, opacities and bins."""
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_forward,
                                                      blend_forward_plain)
     from bloomscene_tpu_torch.ops.cuda.expand import (expand_slab,
@@ -156,20 +204,17 @@ def kernel_checks(model, cam, cfg, vcap, pcap, launches):
                                                       slab_index)
     from bloomscene_tpu_torch.ops.cuda.pairs import (expand_pairs,
                                                      expand_pairs_plain)
+    from bloomscene_tpu_torch.ops.projection import ProjectedSplats
     from bloomscene_tpu_torch.ops.tile_rasterizer import attr_rows
     from bloomscene_tpu_torch.ops.tiles import (pair_kernel_inputs,
                                                 sorted_attr_table, tile_grid)
-    intr = cam.intrinsics
     W, H, tile, cap = intr.width, intr.height, cfg.tile_size, \
         cfg.max_splats_per_tile
     gx, _ = tile_grid(W, H, tile)
-    arrs = cam.device_arrays(model.state.device)
-    vis = prefilter_anchors(model, intr, arrs) if vcap else None
-    res = render(model, intr, arrs, cfg, mode="eval", visible=vis,
-                 visible_capacity=vcap, pair_capacity=pcap,
-                 packed_capacity=pcap)
-    proj, bins = res.proj, res.bins
-    opac = torch.where(proj.valid, res.dec.opacity, 0.0)
+    proj = ProjectedSplats(*(t.detach() for t in res.proj))
+    bins = res.bins
+    color = res.dec.color.detach()
+    opac = torch.where(proj.valid, res.dec.opacity.detach(), 0.0)
     rows = []
 
     # K3: pair expansion
@@ -183,7 +228,6 @@ def kernel_checks(model, cam, cfg, vcap, pcap, launches):
         name="pair_expansion", route="cuda",
         source="bloomscene_tpu_torch/csrc/pairs.cu",
         replaces="bloomscene_tpu/ops/pallas/pairs.py:109",
-        launches=launches["pair_expansion"],
         max_abs_err=float(max(max_abs(key_k, key_p), max_abs(gid_k, gid_p))),
         bitwise=k3_equal,
         ms=time_ms(lambda: expand_pairs(**args), 50),
@@ -193,7 +237,7 @@ def kernel_checks(model, cam, cfg, vcap, pcap, launches):
                 "packed_key": args["packed_key"]}))
 
     # K4: slab expansion
-    asT = sorted_attr_table(attr_rows(proj, res.dec.color, opac),
+    asT = sorted_attr_table(attr_rows(proj, color, opac),
                             bins.gauss_sorted, cap)
     t_start_p = bins.t_start[bins.perm.long()].contiguous()
     slab_k = expand_slab(asT, t_start_p, cap)
@@ -207,7 +251,6 @@ def kernel_checks(model, cam, cfg, vcap, pcap, launches):
         name="slab_expansion", route="cuda",
         source="bloomscene_tpu_torch/csrc/expand.cu",
         replaces="bloomscene_tpu/ops/pallas/expand.py:51",
-        launches=launches["slab_expansion"],
         max_abs_err=max_abs(slab_k, slab_p), bitwise=k4_equal,
         ms=time_ms(lambda: expand_slab(asT, t_start_p, cap), 50),
         plain_ms=time_ms(lambda: expand_slab_plain(asT, t_start_p, cap), 20),
@@ -233,7 +276,6 @@ def kernel_checks(model, cam, cfg, vcap, pcap, launches):
         name="blend_forward", route="cuda",
         source="bloomscene_tpu_torch/csrc/blend.cu",
         replaces="bloomscene_tpu/ops/pallas/blend.py:140",
-        launches=launches["blend_forward"],
         max_abs_err=max(errs[nm] for nm in names), bitwise=k1_bitwise,
         errors=errs,
         ms=time_ms(lambda: blend_forward(bins.slab, counts_p, bins.perm,
@@ -275,6 +317,265 @@ def reference_check(model, cfg, size: int):
                 num_pairs_cpu=int(bins_c.num_pairs), max_abs_err=errs), ok
 
 
+def grad_reference_check(model, cfg, size: int):
+    """At ``size`` x ``size``: the gradients of a fixed loss through the
+    tile blend on the card and by the plain path on the CPU, from the same
+    projected splats."""
+    from bloomscene_tpu_torch.models.render import render
+    from bloomscene_tpu_torch.ops.projection import ProjectedSplats
+    from bloomscene_tpu_torch.ops.tile_rasterizer import rasterize_tiles
+    cam = orbit_cameras(1, size, size, os.path.dirname(
+        os.path.abspath(__file__)))[0]
+    pcap = 1 << 20
+    res = render(model, cam.intrinsics,
+                 cam.device_arrays(model.state.device), cfg, mode="eval",
+                 pair_capacity=pcap)
+    rng = np.random.default_rng(SEED + 3)
+    tgt_c = rng.uniform(0, 1, (size, size, 3)).astype(np.float32)
+    tgt_d = rng.uniform(1, 4, (size, size)).astype(np.float32)
+    names = ("mean2d", "conic", "depth", "color", "opac", "bg")
+    live = (res.proj.mean2d, res.proj.conic, res.proj.depth, res.dec.color,
+            res.dec.opacity, torch.tensor([0.1, 0.2, 0.3]))
+
+    def grads(dev):
+        leaves = [x.detach().to(dev).clone().requires_grad_(True)
+                  for x in live]
+        proj = ProjectedSplats(mean2d=leaves[0], depth=leaves[2],
+                               conic=leaves[1],
+                               radius=res.proj.radius.to(dev),
+                               valid=res.proj.valid.to(dev))
+        out, bins = rasterize_tiles(
+            proj, leaves[3], leaves[4], leaves[5], size, size,
+            tile=cfg.tile_size, pair_capacity=pcap,
+            tile_capacity=cfg.max_splats_per_tile)
+        loss = (torch.mean((out.color - torch.from_numpy(tgt_c).to(dev)) ** 2)
+                + 0.5 * torch.mean((out.depth
+                                    - torch.from_numpy(tgt_d).to(dev)) ** 2)
+                + 0.1 * torch.mean(out.final_T) + 0.05 * torch.mean(out.alpha))
+        return loss, torch.autograd.grad(loss, leaves), int(bins.num_pairs)
+
+    loss_g, g_gpu, pairs = grads(model.state.device)
+    loss_c, g_cpu, pairs_c = grads(torch.device("cpu"))
+    errs, ok = {}, pairs > 0 and pairs == pairs_c
+    for nm, a, b in zip(names, g_gpu, g_cpu):
+        a = a.cpu()
+        errs[nm] = max_abs(a, b)
+        ok = ok and bool(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL))
+        ok = ok and bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0
+    return dict(size=size, num_pairs=pairs, num_pairs_cpu=pairs_c,
+                loss=float(loss_g.detach()), loss_cpu=float(loss_c.detach()),
+                max_abs_err=errs,
+                atol=GRAD_ATOL, rtol=GRAD_RTOL), ok
+
+
+def perturbed(model, seed: int):
+    """The model with feature noise ~N(0, 0.1) and a re-drawn color head
+    (output weights x4, as ``trained_scale_model``): a seeded start that
+    training has to pull back toward the model's own renders. The color
+    head is replaced in the shared ``Heads`` module."""
+    from bloomscene_tpu_torch.models.heads import MLP
+    st = model.state
+    gen = torch.Generator().manual_seed(seed + 2)
+    feat = st.feat + (torch.randn(st.feat.shape, generator=gen)
+                      * 0.1).to(st.device)
+    lins = [m for m in model.heads.color if isinstance(m, torch.nn.Linear)]
+    dims = [lins[0].in_features] + [m.out_features for m in lins]
+    color = MLP(dims, gen, st.device)
+    with torch.no_grad():
+        color[-1].weight *= 4.0
+    model.heads.color = color
+    return model._replace(state=st._replace(feat=feat))
+
+
+def train_phase(model, cams, frames, depths, voxel: float, counters: dict,
+                device: str = "cuda"):
+    """Trainer.run for TRAIN_STEPS steps toward ``frames``/``depths``; one
+    record per step with its milliseconds between CUDA events recorded at
+    the ends of consecutive steps (the host loop reads every step's
+    metrics, so each step ends synchronized)."""
+    import warnings
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.train.loop import Trainer
+    cfg = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)
+    dev = torch.device(device)
+    views = [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
+              torch.as_tensor(d, device=dev))
+             for c, f, d in zip(cams, frames, depths)]
+    trainer = Trainer(perturbed(model, SEED), cfg, cams[0].intrinsics, voxel,
+                      seed=SEED, device=device)
+    timed = dev.type == "cuda"
+    marks, records = [], []
+
+    def mark():
+        if timed:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+    def on_step(rec):
+        mark()
+        records.append(rec)
+
+    if timed:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        mark()
+        trainer.run(views, iterations=TRAIN_STEPS, log_every=1,
+                    callback=on_step)
+        if timed:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    steps = []
+    for i, rec in enumerate(records):
+        steps.append({k: rec[k] for k in (
+            "iteration", "loss", "psnr", "n_visible_anchors", "num_pairs",
+            "tile_overflow", "pair_overflow", "packed_overflow", "skipped")})
+        steps[-1]["ms"] = (marks[i].elapsed_time(marks[i + 1]) if timed
+                           else None)
+    losses = [r["loss"] for r in records]
+    per_forward = 2 if cfg.remat else 1
+    checks = {
+        "steps": len(records) == TRAIN_STEPS,
+        "finite": all(np.isfinite(losses)),
+        "no_skipped_update": all(r["skipped"] == 0 for r in records),
+        "loss_falls": float(np.mean(losses[-5:])) < float(np.mean(losses[:5])),
+        "blend_backward_once_per_step":
+            launches["blend_backward"] == TRAIN_STEPS,
+        "forward_kernels_once_per_forward": all(
+            launches[k] == per_forward * TRAIN_STEPS
+            for k in ("pair_expansion", "slab_expansion", "blend_forward")),
+    }
+    summary = {
+        "steps": len(records), "wall_s": wall,
+        "steps_per_s": len(records) / wall, "launches": launches,
+        "loss_first5": float(np.mean(losses[:5])),
+        "loss_last5": float(np.mean(losses[-5:])),
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated() if timed
+                           else None),
+        "warnings": len(caught),
+        "first_warning": str(caught[0].message) if caught else None,
+        "checks": checks}
+    return trainer, cfg, views, steps, summary, all(checks.values())
+
+
+def train_kernel_checks(trainer, cfg, views):
+    """On the inputs of one training step (the trained model, the first
+    view): K3, K4 and K1 at the training shapes, and K2 against its plain
+    version, twice.
+
+    1. At the loss's own scale, within atol 2e-6 + rtol 2e-4
+       (tests/test_pallas_blend.py:79-80). The loss is a mean over the
+       H x W pixels, so its cotangent planes are ~1e-6 and most gradient
+       entries sit below that atol: this check alone would pass a zeroed
+       row.
+    2. K2 is linear in its six cotangent planes: scaled by H * W * 3 to a
+       per-pixel scale, each entry within atol 2e-6 + rtol 2e-4 of the sum
+       of the magnitudes of its 256 pixel terms (``magnitude=True``): the
+       kernel differs from the plain version only in the order of those
+       sums, so a value that cancels is held to the rounding of its terms,
+       not of itself. In each of the ten rows at least K2_RESOLVED_SHARE of
+       the nonzero entries must have a tolerance below a tenth of their
+       value, and planted faults (each row zeroed in turn, the depth row
+       shifted by one slot) must fail this check."""
+    from bloomscene_tpu_torch.models.render import prefilter_anchors, render
+    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
+                                                     blend_backward_plain,
+                                                     blend_forward,
+                                                     blend_walk)
+    from bloomscene_tpu_torch.ops.cuda.wrapper import (cotangent_planes,
+                                                       reduce_entry_grads)
+    from bloomscene_tpu_torch.ops.tiles import tile_grid
+    from bloomscene_tpu_torch.train.loop import compute_losses
+    cam, gt_image, gt_depth = views[0]
+    intr = trainer.intr
+    tile, cap = cfg.tile_size, cfg.max_splats_per_tile
+    gx, gy = tile_grid(intr.width, intr.height, tile)
+    model = trainer.model
+    with torch.enable_grad():
+        res = render(model, intr, cam, cfg, mode="train", bg=trainer.bg,
+                     visible=prefilter_anchors(model, intr, cam))
+        loss, _ = compute_losses(res, gt_image, gt_depth, cfg)
+        outs = (res.out.color, res.out.depth, res.out.alpha, res.out.final_T)
+        cot = torch.autograd.grad(loss, outs, allow_unused=True)
+    cot = [torch.zeros_like(o) if g is None else g for o, g in zip(outs, cot)]
+    bins = res.bins
+    fwd_rows, fwd_ok = forward_kernel_rows(res, intr, cfg,
+                                           int(bins.src_lane.numel()))
+
+    counts_p = bins.counts[bins.perm.long()].contiguous()
+    _, _, _, D, acc, Tf, ncon = blend_forward(bins.slab, counts_p, bins.perm,
+                                              tile, gx)
+    u = cotangent_planes(*cot, trainer.bg, acc, D, bins.perm, tile, gx, gy)
+    base = (bins.slab, counts_p, bins.perm, tile, gx, Tf, ncon)
+    natural = bool(torch.allclose(blend_backward(*base, *u),
+                                  blend_backward_plain(*base, *u),
+                                  atol=GRAD_ATOL, rtol=GRAD_RTOL))
+    scale = float(intr.width * intr.height * 3)
+    args = (*base, *(x * scale for x in u))
+    got = blend_backward(*args)
+    again = blend_backward(*args)
+    want = blend_backward_plain(*args)
+    tol = GRAD_ATOL + GRAD_RTOL * blend_backward_plain(*args, magnitude=True)
+
+    def close(x):
+        return bool(((x - want).abs() <= tol).all())
+
+    per_row, caught = {}, {}
+    bad = got.clone()
+    for c, nm in enumerate(K2_ROWS):
+        mag = want[c].abs()
+        nz = mag > 0
+        per_row[nm] = dict(
+            nonzero=int(nz.sum()),
+            median_nonzero=float(mag[nz].median()) if nz.any() else 0.0,
+            max=float(mag.max()), max_abs_err=max_abs(got[c], want[c]),
+            resolved_share=float((10 * tol[c][nz] < mag[nz]).double().mean())
+            if nz.any() else 0.0)
+        bad[c] = 0.0
+        caught[f"{nm} zeroed"] = not close(bad)
+        bad[c] = got[c]
+    bad[6] = torch.roll(got[6], 1, dims=0)
+    caught["d depth shifted one slot"] = not close(bad)
+    resolved = all(v["resolved_share"] >= K2_RESOLVED_SHARE
+                   for v in per_row.values())
+    within = close(got)
+    deterministic = torch.equal(got, again)
+    k2_ok = (natural and within and deterministic and resolved
+             and all(caught.values()))
+
+    P, T = tile * tile, counts_p.numel()
+    walk = blend_walk(counts_p, ncon)
+    t_bytes, by = bound(4 * (10 * int(walk.sum()) + 8 * P * T + 2 * T
+                             + 10 * cap * T),
+                        BLEND_BWD_OPS_PER_STEP * float(ncon.double().sum()))
+    row = dict(
+        name="blend_backward", route="cuda",
+        source="bloomscene_tpu_torch/csrc/blend_bwd.cu",
+        replaces="bloomscene_tpu/ops/pallas/blend.py:309",
+        max_abs_err=max_abs(got, want), within_tolerance_natural=natural,
+        within_tolerance=within,
+        # the largest |got - want| / tolerance: 1 at the edge
+        max_tolerance_used=float(((got - want).abs() / tol).max()),
+        cotangent_scale=scale, atol=GRAD_ATOL, rtol=GRAD_RTOL,
+        rows=per_row, rows_resolved=resolved, planted_faults_caught=caught,
+        deterministic=deterministic,
+        ms=time_ms(lambda: blend_backward(*args), 20),
+        plain_ms=time_ms(lambda: blend_backward_plain(*args), 1),
+        reduce_ms=time_ms(lambda: reduce_entry_grads(
+            got, bins.src_lane, bins.starts_by_id, bins.ends_by_id), 20),
+        bound_ms=t_bytes, bound_by=by, library_ms=None,
+        shapes={"grad": list(got.shape), "max_walk": int(walk.max()),
+                "sum_walk": int(walk.sum()),
+                "sum_n_contrib": int(ncon.sum())})
+    return row, k2_ok, fwd_rows, fwd_ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -284,7 +585,8 @@ def main() -> int:
     sys.path.insert(0, repo)
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.ops.cuda import build
-    from bloomscene_tpu_torch.ops.cuda.blend import blend_forward
+    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
+                                                     blend_forward)
     from bloomscene_tpu_torch.ops.cuda.expand import expand_slab
     from bloomscene_tpu_torch.ops.cuda.pairs import expand_pairs
     from bloomscene_tpu_torch.pipeline.bloomscene import render_model
@@ -318,7 +620,8 @@ def main() -> int:
     cams = orbit_cameras(N_FRAMES, 512, 512, repo)
     counters = {"pair_expansion": expand_pairs,
                 "slab_expansion": expand_slab,
-                "blend_forward": blend_forward}
+                "blend_forward": blend_forward,
+                "blend_backward": blend_backward}
     for fn in counters.values():
         fn.launches = 0
     stats: list = []
@@ -332,7 +635,8 @@ def main() -> int:
     shapes = all(f.shape == (512, 512, 3) and d.shape == (512, 512)
                  for f, d in zip(frames, depths))
     pairs_ok = all(s["num_pairs"] > 0 for s in stats)
-    counts_ok = all(v == len(frames) for v in launches.values())
+    counts_ok = all(v == (0 if name == "blend_backward" else len(frames))
+                    for name, v in launches.items())
     emit({"phase": "render", "frames": len(frames), "fps": fps,
           "card": card, "launches": launches, "finite": finite,
           "shapes_ok": shapes, "pairs_ok": pairs_ok,
@@ -344,9 +648,9 @@ def main() -> int:
     # 4. kernels against their plain versions
     rows, ok = kernel_checks(model, cams[0], cfg,
                              stats[0]["visible_capacity"],
-                             stats[0]["pair_capacity"], launches)
+                             stats[0]["pair_capacity"])
     for row in rows:
-        emit({"phase": "kernel", "card": card, **row})
+        emit({"phase": "kernel", "at": "render_frame", "card": card, **row})
     failed += [name for name, good in ok.items() if not good]
 
     # 5. small reference
@@ -355,10 +659,47 @@ def main() -> int:
     if not ref_ok:
         failed.append("reference")
 
+    # 6. gradients through the tile blend, card against CPU
+    gref, gref_ok = grad_reference_check(model, cfg, 128)
+    emit({"phase": "grad_reference", **gref, "ok": gref_ok})
+    if not gref_ok:
+        failed.append("grad_reference")
+
+    # 7. the training path (perturbs and trains the model in place)
+    trainer, cfg_t, views, steps, summary, train_ok = train_phase(
+        model, cams, frames, depths, voxel, counters)
+    for step in steps:
+        emit({"phase": "train_step", **step})
+    emit({"phase": "train", "card": card, **summary, "ok": train_ok})
+    if not train_ok:
+        failed.append("train")
+
+    # 8. the kernels on one training step's inputs: K3, K4, K1 at the
+    # training shapes, K2
+    row, k2_ok, fwd_rows, fwd_ok = train_kernel_checks(trainer, cfg_t, views)
+    for r in fwd_rows:
+        emit({"phase": "kernel", "at": "train_step", "card": card, **r})
+    emit({"phase": "kernel", "at": "train_step", "card": card, **row})
+    failed += [f"{name} (train step)" for name, good in fwd_ok.items()
+               if not good]
+    if not k2_ok:
+        failed.append("blend_backward")
+    train_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "shapes")
+    for r, t in zip(rows, fwd_rows):
+        r["train_shape"] = {k: t[k] for k in train_keys}
+    rows.append(row)
+    # a kernel's launches are those of both paths, render and train
+    for r in rows:
+        r["launches_render"] = launches[r["name"]]
+        r["launches_train"] = summary["launches"][r["name"]]
+        r["launches"] = r["launches_render"] + r["launches_train"]
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_render", "launches_train", "train_shape")
     print(card, flush=True)
-    emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
+    emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

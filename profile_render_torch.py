@@ -1,17 +1,34 @@
 #!/usr/bin/env python3
-"""Where a frame's time goes on the PyTorch port's render path, on one card.
+"""Where a frame's time, or a training step's, goes on the PyTorch port, on
+one card.
 
     python3 profile_render_torch.py [--frames 8]
+    python3 profile_render_torch.py --train 10
 
 Builds the scene of ``chip_smoke.py`` (~111K anchors, GSConfig defaults,
-512x512, the rotate360 orbit), sizes the buffers as ``render_model`` does,
-then for each frame:
+512x512, the rotate360 orbit).
+
+Render (the default): sizes the buffers as ``render_model`` does, then for
+each frame:
 
 1. stage times on the host clock with ``torch.cuda.synchronize()`` after
    each stage: prefilter, compaction, decode, projection, binning (K3, the
    tile sort, K4) and blend (K1 and the image assembly);
 2. under ``torch.profiler``: the device time by kernel name, the number of
    kernel launches per frame and the device's busy share of the window.
+
+``--train N``: the training phase of ``chip_smoke.py`` (the perturbed
+model, ``GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)``, the 8
+orbit frames as targets); two warm-up steps, N steps of ``Trainer.run``
+timed on the host clock, then N more under ``torch.profiler``: per step,
+for each ``record_function`` span of the step (``train.*``) and of the
+tile blend's backward (``tile_blend.*``: cotangent planes, K2, the
+emission-order reduction) its host time and the device time of the
+kernels inside its device-side interval, the device time by kernel name,
+and the device's busy share. The backward runs on autograd's device
+thread, outside the ``train.backward`` span's device-side interval; the
+line gives its device time as the window's total less the other step
+spans.
 
 Prints one JSON object per measurement, the card's name and power limit
 first. Needs one CUDA card.
@@ -27,15 +44,121 @@ import time
 import torch
 
 
+SPAN_PREFIXES = ("train.", "tile_blend.")     # record_function spans
+
+
+def kernel_table(prof) -> list[dict]:
+    """Device time and calls by kernel name, largest first."""
+    from torch.autograd import DeviceType
+    kernels = []
+    for e in prof.key_averages():
+        # device-side events only (the CPU op that launched a kernel carries
+        # the same time again), and no span: a span's device-side event
+        # covers the kernels inside it, idle gaps included
+        if (e.device_type != DeviceType.CUDA
+                or e.key.startswith(SPAN_PREFIXES)):
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            kernels.append({"name": e.key[:90], "device_us": dev_us,
+                            "calls": e.count})
+    kernels.sort(key=lambda k: -k["device_us"])
+    return kernels
+
+
+def span_table(prof, steps: int) -> dict:
+    """Per step, for each span: host ms (its interval on the host) and
+    device busy ms (the kernels that ran inside its device-side interval;
+    the stream runs one kernel at a time)."""
+    import bisect
+    from torch.autograd import DeviceType
+    events = prof.events()
+    kern = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(SPAN_PREFIXES))
+    starts = [k[0] for k in kern]
+    spans: dict[str, dict] = {}
+    for e in events:
+        if not e.name.startswith(SPAN_PREFIXES):
+            continue
+        d = spans.setdefault(e.name, {"host_ms": 0.0, "device_busy_ms": 0.0})
+        a, b = e.time_range.start, e.time_range.end
+        if e.device_type == DeviceType.CPU:
+            d["host_ms"] += (b - a) / 1e3 / steps
+            continue
+        busy = 0
+        for k in range(bisect.bisect_left(starts, a), len(kern)):
+            s0, s1 = kern[k]
+            if s0 >= b:
+                break
+            busy += min(s1, b) - s0
+        d["device_busy_ms"] += busy / 1e3 / steps
+    return spans
+
+
+def profile_train(steps: int, repo: str) -> int:
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.pipeline.bloomscene import render_model
+    from bloomscene_tpu_torch.train.loop import Trainer
+
+    card = cs.card_name_and_power()
+    print(json.dumps({"card": card}), flush=True)
+    cfg = GSConfig(voxel_size=0.03)
+    model, voxel = cs.trained_scale_model(cs.room_points(cs.N_POINTS, cs.SEED),
+                                          cfg, cs.SEED, "cuda")
+    cams = cs.orbit_cameras(cs.N_FRAMES, 512, 512, repo)
+    frames, depths, _ = render_model(model, cams, cfg, mode="eval")
+    cfg_t = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)
+    views = [(c.device_arrays("cuda"), torch.as_tensor(f, device="cuda"),
+              torch.as_tensor(d, device="cuda"))
+             for c, f, d in zip(cams, frames, depths)]
+    trainer = Trainer(cs.perturbed(model, cs.SEED), cfg_t,
+                      cams[0].intrinsics, voxel, seed=cs.SEED)
+    trainer.run(views, iterations=2, log_every=1)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(views, iterations=2 + steps, log_every=1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(views, iterations=2 + 2 * steps, log_every=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = span_table(prof, steps)
+    kernels = kernel_table(prof)
+    device_ms = sum(k["device_us"] for k in kernels) / 1e3 / steps
+    others = sum(spans.get(f"train.{k}", {}).get("device_busy_ms", 0.0)
+                 for k in ("prefilter", "forward", "update", "stats"))
+    print(json.dumps({
+        "steps": steps, "step_ms_unprofiled": plain_ms,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": device_ms,
+        "backward_device_ms_per_step": device_ms - others,
+        "device_busy_share": device_ms * steps / wall_ms,
+        "kernel_launches_per_step": sum(k["calls"] for k in kernels) / steps,
+        "spans": spans, "top_kernels": kernels[:25],
+        "history": trainer.history[-2 * steps:], "card": card}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--train", type=int, default=0, metavar="STEPS",
+                    help="profile STEPS training steps instead of frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render_torch: needs a CUDA card", file=sys.stderr)
         return 1
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
+    if args.train:
+        return profile_train(args.train, repo)
     import chip_smoke as cs
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.models.decode import (attribute_means,
@@ -43,7 +166,7 @@ def main() -> int:
     from bloomscene_tpu_torch.models.render import (_project, compact_visible,
                                                     count_pairs,
                                                     prefilter_anchors, render)
-    from bloomscene_tpu_torch.ops.cuda.wrapper import blend_tiles
+    from bloomscene_tpu_torch.ops.cuda.wrapper import tile_blend
     from bloomscene_tpu_torch.ops.tile_rasterizer import attr_rows
     from bloomscene_tpu_torch.ops.tiles import bin_splats, tile_grid
     from bloomscene_tpu_torch.pipeline.bloomscene import EVAL_VCAP_GRANULE
@@ -110,9 +233,9 @@ def main() -> int:
                 proj, W, H, tile, pcap, cap, opacities=opac,
                 packed_capacity=pcap,
                 attr_rows=attr_rows(proj, dec.color, opac)))
-            timed("blend", lambda: blend_tiles(
-                bins.slab, bins.counts, bins.perm, bins.pos,
-                torch.zeros(3, device="cuda"), tile, gx, gy, W, H))
+            timed("blend", lambda: tile_blend(
+                proj.mean2d, proj.conic, proj.depth, dec.color, opac,
+                torch.zeros(3, device="cuda"), bins, tile, gx, gy, W, H))
             stages.setdefault("frame", []).append(
                 (time.perf_counter() - t_frame) * 1e3)
     print(json.dumps({"stage_ms_mean": {k: sum(v) / len(v)
@@ -129,19 +252,7 @@ def main() -> int:
             frame(a)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-    kernels = []
-    for e in prof.key_averages():
-        # device-side events only: the CPU op that launched a kernel carries
-        # the same time again
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            kernels.append({"name": e.key[:90], "device_us": dev_us,
-                            "calls": e.count})
-    kernels.sort(key=lambda k: -k["device_us"])
+    kernels = kernel_table(prof)
     n_launch = sum(k["calls"] for k in kernels)
     device_ms = sum(k["device_us"] for k in kernels) / 1e3
     print(json.dumps({

@@ -7,7 +7,10 @@ JAX: ``python -m pytest tests/test_torch_kernels.py -q`` there runs the
 
 Tolerances: K3 (pair expansion) and K4 (slab expansion) bitwise; K1 (blend
 forward) 1e-5 on color, acc and T and 1e-4 on the depth sum, the
-tolerances of tests/test_pallas_blend.py:48-52.
+tolerances of tests/test_pallas_blend.py:48-52; K2 (blend backward) atol
+2e-6 + rtol 2e-4, those of tests/test_pallas_blend.py:79-80 (the kernel
+sums each slot's pixels in a fixed tree, the plain version in torch's
+order), and bitwise equal to itself from one launch to the next.
 """
 import numpy as np
 import pytest
@@ -32,11 +35,13 @@ def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_match_plain(rng):
-    """K3 (packed-key and two-key outputs), K4 and K1 against their plain
-    versions on the card, on a random 400-splat scene at 64x64."""
+    """K3 (packed-key and two-key outputs), K4, K1 and K2 against their
+    plain versions on the card, on a random 400-splat scene at 64x64."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
-    from bloomscene_tpu_torch.ops.cuda.blend import (blend_forward,
+    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
+                                                     blend_backward_plain,
+                                                     blend_forward,
                                                      blend_forward_plain)
     from bloomscene_tpu_torch.ops.cuda.expand import (expand_slab,
                                                       expand_slab_plain)
@@ -83,3 +88,14 @@ def test_kernels_match_plain(rng):
     for i, (a, b) in enumerate(zip(got, want)):
         tol = 1e-4 if i == 3 else 1e-5
         assert float((a.double() - b.double()).abs().max()) <= tol
+    Tf, ncon = want[5], want[6]
+    # cotangents at the scale of a mean over the image's pixels
+    u = [t(rng.normal(size=Tf.shape) / (W * W)) for _ in range(6)]
+    args = (bins.slab, counts_p, bins.perm, TILE, W // TILE, Tf, ncon, *u)
+    got = blend_backward(*args)
+    again = blend_backward(*args)
+    want = blend_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-4)
+    assert torch.equal(got, again)

@@ -4,6 +4,7 @@ the JAX package on the same inputs.
 Projection is elementwise float32 arithmetic in the same order in both
 packages, so the outputs are asserted bitwise equal.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -125,3 +126,43 @@ def test_projection_differentiable():
     (out.mean2d.sum() + out.depth.sum()).backward()
     g = means.grad.numpy()
     assert np.all(np.isfinite(g)) and np.abs(g).sum() > 0
+
+
+def test_projection_grads_match_jax(rng):
+    """The gradients of ``build_cov3d`` + ``project_gaussians`` with respect
+    to means, scales and quaternions against ``jax.grad``, for a loss over
+    the valid splats' mean2d, conic and depth. Tolerance atol 1e-6 + rtol
+    1e-3: the forwards are bitwise equal, but the two autodiff systems
+    order the adjoint's products and sums differently, and the conic's
+    adjoint goes through the 2D covariance's determinant, which cancels
+    for thin splats (measured: 1.4e-4 relative at worst on this input)."""
+    n = 200
+    means = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+                      rng.uniform(0.5, 6, n)], -1).astype(np.float32)
+    scales = rng.uniform(0.01, 0.4, (n, 3)).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    w = rng.normal(size=(n, 6)).astype(np.float32)
+    view, full, fx, fy, tx, ty = make_camera(96, 72)
+
+    def loss(lib, proj_mod, m, s, q, wt, v, f):
+        p = proj_mod.project_gaussians(m, proj_mod.build_cov3d(s, q), v, f,
+                                       96, 72, fx, fy, tx, ty)
+        terms = ((wt[:, 0:2] * p.mean2d * 0.01).sum(-1)
+                 + (wt[:, 2:5] * p.conic * 100.0).sum(-1) + wt[:, 5] * p.depth)
+        return lib.where(p.valid, terms, 0.0).sum()
+
+    gj = jax.grad(lambda m, s, q: loss(jnp, jp, m, s, q, jnp.asarray(w),
+                                       jnp.asarray(view), jnp.asarray(full)),
+                  argnums=(0, 1, 2))(jnp.asarray(means), jnp.asarray(scales),
+                                     jnp.asarray(quats))
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (means, scales, quats)]
+    gt = torch.autograd.grad(
+        loss(torch, tp, *leaves, torch.from_numpy(w), torch.from_numpy(view),
+             torch.from_numpy(full)), leaves)
+    for name, a, b in zip(('means', 'scales', 'quats'), gt, gj):
+        b = np.asarray(b)
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-6, rtol=1e-3,
+                                   err_msg=name)

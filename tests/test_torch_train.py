@@ -1,0 +1,482 @@
+"""Port parity for the phase-0 training step against the JAX package.
+
+- The straight-through rules of ``ops/quantization.py`` against
+  ``jax.vjp``: bitwise (elementwise masks and copies).
+- ``expon_lr`` against the JAX schedule within 2e-7 relative, and two
+  Adam updates per group against optax within 1e-6 relative and 1e-8
+  absolute (about ten ulps of a 0.01-sized update): float32 exp/log/pow
+  may differ in the last bit between torch and XLA, and XLA may fuse the
+  update's multiply-adds; the rest is the same elementwise float32
+  arithmetic.
+- Each loss's value and gradient against ``jax.grad`` run op by op: value
+  1e-6 relative, gradient 1e-6 absolute + 1e-4 relative (the SSIM
+  convolution and the reductions sum in another order).
+- ``accumulate_stats``, dense and compacted: 1e-6 relative (the norm).
+- One ``_step_core`` on a tiny ``build_scene`` (64 px, 300 points, depth
+  losses on) against the jitted JAX ``make_train_step`` after
+  ``convert.model_from_jax_params``: the loss within 1e-5 relative, and
+  every leaf's gradient (read from Adam's first moment, 0.1 g after one
+  step in both) within ``NOISE_FLOOR`` = 1e-4 of the leaf's largest
+  gradient. That floor is measured: the JAX package's own two blends
+  ('pallas' in interpret mode and 'xla') give step gradients that differ
+  by up to 3.4e-5 of the leaf's largest on this scene, dense and
+  compacted (the port's differ from 'xla' by up to 4.5e-5: the blend
+  backward's suffix form, the per-Gaussian sums' order, XLA's fused
+  multiply-adds); ``test_jax_backends_agree_within_noise_floor`` holds
+  the JAX gap below it. At least 75% of each leaf's nonzero gradient
+  entries lie above the floor (83% at the least on this scene). Every
+  parameter after the step matches within rtol 5e-3, atol 1e-4, the
+  tolerance of tests/test_training.py:195, where the gradient lies above
+  the floor; below it the gradient's sign is rounding noise, and Adam's
+  eps 1e-15 turns it into a step of the learning rate's size either way
+  (``assert_params_match``).
+- A 3-step run (the port's ``Trainer``) within that same tolerance.
+- The torch ``fit_single_view`` at 64 px (250 points, 20 steps: the plain
+  blend walks each tile's slots in Python) lowers the eval render's L1
+  error.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from bloomscene_tpu.config import GSConfig as JaxConfig
+from bloomscene_tpu.models import anchors as jax_anchors
+from bloomscene_tpu.models import densify as jax_densify
+from bloomscene_tpu.models.model import init_model as jax_init_model
+from bloomscene_tpu.ops import quantization as jq
+from bloomscene_tpu.ops import tile_rasterizer as jax_tile_rasterizer
+from bloomscene_tpu.ops.pallas import blend as pallas_blend
+from bloomscene_tpu.scene.cameras import camera_from_rt as jax_camera
+from bloomscene_tpu.train import losses as jl
+from bloomscene_tpu.train.loop import make_train_step as jax_train_step
+from bloomscene_tpu.train.optim import make_optimizer as jax_optimizer
+from bloomscene_tpu.train.schedules import expon_lr as jax_expon_lr
+from bloomscene_tpu_torch.config import GSConfig
+from bloomscene_tpu_torch.convert import model_from_jax_params, model_to_numpy
+from bloomscene_tpu_torch.examples import fit_single_view
+from bloomscene_tpu_torch.models import densify
+from bloomscene_tpu_torch.ops import quantization as tq
+from bloomscene_tpu_torch.scene.cameras import camera_from_rt
+from bloomscene_tpu_torch.train import losses as tl
+from bloomscene_tpu_torch.train.loop import Trainer, make_train_step
+from bloomscene_tpu_torch.train.optim import Adam, make_trainable
+from bloomscene_tpu_torch.train.schedules import expon_lr
+
+torch.set_num_threads(2)
+STEP_CFG = dict(voxel_size=0.08, max_splats_per_tile=1024, use_dpr=True,
+                start_stat=0, update_from=10 ** 9, iterations=3,
+                noise_from_step=10 ** 9, context_from_step=10 ** 9)
+RES = 64
+# gradient entries below this share of their leaf's largest are rounding
+# noise (the module docstring says how it was measured)
+NOISE_FLOOR = 1e-4
+RESOLVED_SHARE = 0.75
+
+
+def t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+# --- straight-through rules ---------------------------------------------
+
+def _vjps(jfn, tfn, x, g, *extra):
+    out_j, vjp = jax.vjp(lambda v: jfn(jnp.asarray(v), *extra), x)
+    (gj,) = vjp(jnp.asarray(g))
+    xt = t(x).requires_grad_(True)
+    out_t = tfn(xt, *(t(e) if isinstance(e, np.ndarray) else e
+                      for e in extra))
+    (gt,) = torch.autograd.grad(out_t, xt, t(g))
+    return np.asarray(out_j), out_t.detach().numpy(), np.asarray(gj), \
+        gt.numpy()
+
+
+def test_straight_through_rules_match_jax(rng):
+    x = rng.normal(0, 1.5, (64, 8)).astype(np.float32)
+    x[0, :4] = [1.0, -1.0, 0.0, 1e-7]                # the mask boundaries
+    g = rng.normal(size=x.shape).astype(np.float32)
+    for name, jfn, tfn, extra in (
+            ('ste_binary', jq.ste_binary, tq.ste_binary, ()),
+            ('ste_multistep', jq.ste_multistep, tq.ste_multistep,
+             (np.full((64, 1), 0.25, np.float32), np.float32(0.1))),
+            ('low_bound', lambda v: jq.low_bound(v, 0.3),
+             lambda v: tq.low_bound(v, 0.3), ())):
+        oj, ot, gj, gt = _vjps(jfn, tfn, x, g, *extra)
+        if name != 'ste_multistep':      # its tanh: tests/test_torch_decode
+            np.testing.assert_array_equal(ot, oj, err_msg=name)
+        np.testing.assert_array_equal(gt, gj, err_msg=name)
+    lo, hi = np.float32([[-2, -2, -2]]), np.float32([[2, 2, 2]])
+    x3 = rng.uniform(-2, 2, (50, 3)).astype(np.float32)
+    g3 = rng.normal(size=x3.shape).astype(np.float32)
+    (qj, _), vjp = jax.vjp(lambda v: jq.quantize_anchor(v, lo, hi), x3)
+    (gj,) = vjp((jnp.asarray(g3), jnp.zeros_like(qj)))
+    xt = t(x3).requires_grad_(True)
+    qt, _ = tq.quantize_anchor(xt, t(lo), t(hi))
+    (gt,) = torch.autograd.grad(qt, xt, t(g3))
+    np.testing.assert_array_equal(qt.detach().numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(gj))
+
+
+# --- schedule and optimizer ---------------------------------------------
+
+def test_expon_lr_matches_jax():
+    for kw in ({}, {'lr_delay_steps': 20, 'lr_delay_mult': 0.01}):
+        fj = jax_expon_lr(1.6e-3, 1.6e-6, max_steps=2990, **kw)
+        ft = expon_lr(1.6e-3, 1.6e-6, max_steps=2990, **kw)
+        for step in (0, 1, 7, 100, 1500, 2989, 2990, 4000, -1):
+            np.testing.assert_allclose(float(ft(step)), float(fj(step)),
+                                       rtol=2e-7, err_msg=f"{kw} {step}")
+
+
+def named_jax(m) -> dict:
+    """Leaves of a JAX-``Model``-shaped tree by canonical name, skipping
+    optax's masked leaves."""
+    out = {('state', f): getattr(m.state, '_' + f)
+           for f in m.state._fields}
+    for name, layers in m.heads.items():
+        for i, layer in enumerate(layers):
+            out[('heads', name, i, 'w')] = layer['w']
+            out[('heads', name, i, 'b')] = layer['b']
+    out.update({('grid', k): v for k, v in m.grid.items()})
+    out.update({('bounds', f): getattr(m.bounds, f)
+                for f in m.bounds._fields})
+    return {k: np.asarray(v) for k, v in out.items()
+            if not isinstance(v, optax.MaskedNode)}
+
+
+def named_port(tree: dict) -> dict:
+    """``model_to_numpy``'s nested dict by the same canonical names."""
+    out = {('state', f): v for f, v in tree['state'].items()}
+    for name, layers in tree['heads'].items():
+        for i, layer in enumerate(layers):
+            out[('heads', name, i, 'w')] = layer['w']
+            out[('heads', name, i, 'b')] = layer['b']
+    out.update({('grid', k): v for k, v in tree['grid'].items()})
+    out.update({('bounds', k): v for k, v in tree['bounds'].items()})
+    return out
+
+
+def port_name(name: str) -> tuple:
+    """An ``Adam.params`` leaf name -> its canonical name and whether the
+    port stores it transposed ([out, in] weights)."""
+    parts = name.split('.')
+    if parts[0] == 'heads':
+        return ('heads', parts[1], int(parts[2]) // 2,
+                'w' if parts[3] == 'weight' else 'b'), parts[3] == 'weight'
+    return tuple(parts), False
+
+
+def jax_moments(opt_state) -> dict:
+    """Adam's first moment of every trained leaf, by canonical name."""
+    out = {}
+    for label, st in opt_state.inner_states.items():
+        if label != 'frozen':
+            out.update(named_jax(st.inner_state[0].mu))
+    return out
+
+
+def port_moments(opt: Adam) -> dict:
+    out = {}
+    for (name, _, p), m in zip(opt.params, opt.m):
+        key, transposed = port_name(name)
+        a = m.detach().numpy().reshape(p.shape)
+        out[key] = a.T if transposed else a.reshape(-1)
+    return out
+
+
+def resolved(moment: np.ndarray) -> np.ndarray:
+    """Entries whose gradient lies above the leaf's noise floor."""
+    m = np.abs(moment)
+    return m > NOISE_FLOOR * m.max()
+
+
+def assert_params_match(got: dict, want: dict, moments: dict, opt: Adam,
+                        steps: int):
+    """Parameters after ``steps`` updates within rtol 5e-3, atol 1e-4
+    wherever JAX's first moment lies above the noise floor. Below it the
+    gradient is rounding noise whose sign either side may take, and Adam's
+    eps 1e-15 turns even a 1e-11 gradient into a step of the full learning
+    rate; there the two may differ by at most two such steps per update."""
+    lr0 = {port_name(name)[0]: float(opt.lr[group](0))
+           for name, group, _ in opt.params}
+    for k in want:
+        if k not in moments:             # frozen leaves and the bounds
+            np.testing.assert_allclose(got[k], want[k], rtol=5e-3, atol=1e-4,
+                                       err_msg=f"parameter {k}")
+            continue
+        ok = resolved(moments[k]).reshape(want[k].shape)
+        np.testing.assert_allclose(got[k][ok], want[k][ok],
+                                   rtol=5e-3, atol=1e-4,
+                                   err_msg=f"parameter {k}")
+        assert np.all(np.abs(got[k] - want[k])[~ok]
+                      <= 2 * steps * lr0[k] * (1 + 1e-6)), f"parameter {k}"
+
+
+@pytest.fixture(scope='module')
+def small_models():
+    pts = np.random.default_rng(3).uniform(-1, 1, (300, 3)).astype(
+        np.float32) * 0.7
+    pts[:, 2] += 2.5
+    jcfg = JaxConfig(**STEP_CFG)
+    m, vs = jax_init_model(jax.random.PRNGKey(0), pts, jcfg, capacity=512)
+    m = m._replace(bounds=jax_anchors.update_anchor_bounds(m.state))
+    return m, vs
+
+
+def test_adam_update_per_group_matches_optax(small_models, rng):
+    """Two updates with random gradients on every leaf: optax's
+    multi_transform and the port's Adam end on the same parameters (the
+    frozen leaves unchanged)."""
+    m, _ = small_models
+    cfg, jcfg = GSConfig(**STEP_CFG), JaxConfig(**STEP_CFG)
+    tm = make_trainable(model_from_jax_params(jax.tree.map(np.asarray, m),
+                                              cfg, device='cpu'))
+    opt = Adam(cfg, 1.0, tm)
+    jopt = jax_optimizer(jcfg, 1.0, m)
+    state = jopt.init(m)
+    update = jax.jit(jopt.update)
+    for _ in range(2):
+        g = jax.tree.map(
+            lambda p: (jnp.asarray(rng.normal(size=p.shape).astype(p.dtype))
+                       if jnp.issubdtype(p.dtype, jnp.floating)
+                       else jnp.zeros_like(p)), m)
+        upd, state = update(g, state, m)
+        m = jax.tree.map(lambda p, u: p + u if jnp.issubdtype(
+            p.dtype, jnp.floating) else p, m, upd)
+        gn = named_jax(g)
+        grads = []
+        for name, _, p in opt.params:
+            key, transposed = port_name(name)
+            a = gn[key].T if transposed else gn[key]
+            grads.append(torch.from_numpy(np.array(a)).reshape(
+                p.shape))
+        opt.step(grads)
+    want = named_jax(m)
+    got = named_port(model_to_numpy(tm))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-8,
+                                   err_msg=str(k))
+
+
+# --- losses --------------------------------------------------------------
+
+def test_losses_match_jax(rng):
+    H = W = 24
+    img = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    img[:6, :6] = 0.0                         # exact-zero variance windows
+    gt_img = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    gt_img[:6, :6] = 0.0
+    dep = rng.uniform(0.5, 4, (H, W)).astype(np.float32)
+    gt_dep = np.where(rng.uniform(size=(H, W)) < 0.3, 0.0,
+                      rng.uniform(1, 3, (H, W))).astype(np.float32)
+    consts = {'img': gt_img, 'dep': gt_dep}
+    cases = {
+        'l1': (lambda x, lib, c: lib.l1_loss(x, c['img']), img),
+        'ssim': (lambda x, lib, c: lib.ssim(x, c['img']), img),
+        'cmd_raw': (lambda x, lib, c: lib.cmd(x[None],
+                                              c['dep'][None, None]), dep),
+        'cmd_normalized': (lambda x, lib, c: lib.cmd(
+            x[None], c['dep'][None, None], normalized=True), dep),
+        'bilateral': (lambda x, lib, c: lib.bilateral_smoothness(x), dep),
+        'huber_edge': (lambda x, lib, c: lib.huber_l1_edge_aware(
+            x, c['dep'], c['img']), dep),
+        'minmax': (lambda x, lib, c: 0.01 * lib.minmax_normalize(x).sum()
+                   + lib.minmax_normalize(x)[3, 5], dep),
+    }
+    cj = {k: jnp.asarray(v) for k, v in consts.items()}
+    ct = {k: t(v) for k, v in consts.items()}
+    for name, (fn, x) in cases.items():
+        vj, gj = jax.value_and_grad(lambda v: fn(v, jl, cj))(jnp.asarray(x))
+        xt = t(x).requires_grad_(True)
+        vt = fn(xt, tl, ct)
+        (gt,) = torch.autograd.grad(vt, xt)
+        np.testing.assert_allclose(float(vt.detach()), float(vj), rtol=1e-6,
+                                   err_msg=name)
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=1e-6,
+                                   rtol=1e-4, err_msg=name)
+
+
+# --- densify statistics ----------------------------------------------------
+
+@pytest.mark.parametrize('compacted', [False, True])
+def test_accumulate_stats_matches_jax(rng, compacted):
+    C, K, V = 40, 4, 24
+    W, H = 64, 48
+    n = (V if compacted else C) * K
+    base = [rng.uniform(0, 5, C).astype(np.float32),
+            rng.uniform(0, 9, C).astype(np.float32),
+            rng.uniform(0, 1, C * K).astype(np.float32),
+            rng.uniform(0, 9, C * K).astype(np.float32)]
+    nop = rng.normal(size=n).astype(np.float32)
+    cv = rng.uniform(size=n) < 0.7
+    sv = rng.uniform(size=n) < 0.8
+    av = rng.uniform(size=C) < 0.6
+    g = rng.normal(0, 1e-3, 2 * n).astype(np.float32)
+    idx = None
+    if compacted:
+        idx = np.concatenate([np.sort(rng.choice(C, V - 5, replace=False)),
+                              np.full(5, C)]).astype(np.int32)
+    want = jax_densify.accumulate_stats(
+        jax_densify.DensifyStats(*map(jnp.asarray, base)), jnp.asarray(nop),
+        jnp.asarray(cv), jnp.asarray(sv), jnp.asarray(av), jnp.asarray(g),
+        W, H, anchor_idx=None if idx is None else jnp.asarray(idx))
+    got = densify.accumulate_stats(
+        densify.DensifyStats(*map(t, base)), t(nop), torch.from_numpy(cv),
+        torch.from_numpy(sv), torch.from_numpy(av), t(g), W, H,
+        anchor_idx=None if idx is None else torch.from_numpy(idx))
+    for f, a, b in zip(want._fields, got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-9, err_msg=f)
+
+
+# --- the step ----------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def jax_run(small_models):
+    """``run(visible_capacity, n, pallas=False)``: n steps of the jitted
+    JAX step on one view from the small model, one (state, metrics) per
+    step (memoized), and the view. ``pallas`` renders through the JAX
+    package's Pallas blend in interpret mode instead of its XLA scan."""
+    m, _ = small_models
+    pts, cam, img, depth = fit_single_view.build_scene(res=RES)
+    jcam = jax_camera(np.eye(3), np.zeros(3), 1.0, 1.0, RES, RES)
+    memo = {}
+
+    def run(vcap, n, pallas=False):
+        if (vcap, n, pallas) in memo:
+            return memo[vcap, n, pallas]
+        jcfg = JaxConfig(**STEP_CFG, visible_capacity=vcap)
+        opt = jax_optimizer(jcfg, 1.0, m)
+        on_tpu = jax_tile_rasterizer._on_tpu
+        if pallas:
+            # the backend is chosen when the step is traced
+            jax_tile_rasterizer._on_tpu = lambda: True
+            pallas_blend.INTERPRET = True
+        try:
+            step = jax_train_step(jcfg, jcam.intrinsics, opt, jnp.zeros(3))
+            out = steps(step, jcfg, opt, n)
+        finally:
+            jax_tile_rasterizer._on_tpu = on_tpu
+            pallas_blend.INTERPRET = False
+        memo[vcap, n, pallas] = out
+        return out
+
+    def steps(step, jcfg, opt, n):
+        state = (m, opt.init(m), jax_densify.init_stats(m.state.capacity,
+                                                        jcfg.n_offsets))
+        out = []
+        for it in range(1, n + 1):
+            track = jcfg.start_stat < it < jcfg.update_until
+            *state, metrics = step(*state, jcam.device_arrays(),
+                                   jnp.asarray(img), jnp.asarray(depth),
+                                   jax.random.PRNGKey(it), phase=0,
+                                   track_stats=track)
+            out.append((state, metrics))
+        return out
+
+    return run, (cam, img, depth)
+
+
+@pytest.mark.parametrize('vcap', [None, 256])
+def test_step_matches_jax(small_models, jax_run, vcap):
+    """Dense decode, and decode of the visible anchors compacted into 256
+    rows (the gradient goes back through the row gather)."""
+    m, _ = small_models
+    cfg = GSConfig(**STEP_CFG, visible_capacity=vcap)
+    run, (cam, img, depth) = jax_run
+    ((jm, jopt_state, jstats), jmet) = run(vcap, 3 if vcap is None else 1)[0]
+    tm = make_trainable(model_from_jax_params(jax.tree.map(np.asarray, m),
+                                              cfg, device='cpu'))
+    opt = Adam(cfg, 1.0, tm)
+    step = make_train_step(cfg, cam.intrinsics, opt, torch.zeros(3))
+    tm, stats, met = step(tm, densify.init_stats(tm.state.capacity,
+                                                 cfg.n_offsets, 'cpu'),
+                          cam.device_arrays('cpu'), t(img), t(depth),
+                          phase=0, track_stats=True)
+    assert int(met.skipped) == 0 and int(met.tile_overflow) == 0
+    np.testing.assert_allclose(float(met.loss), float(jmet.loss), rtol=1e-5)
+    np.testing.assert_allclose(float(met.psnr), float(jmet.psnr), rtol=1e-5)
+    assert int(met.n_visible_anchors) == int(jmet.n_visible_anchors)
+
+    want_m, got_m = jax_moments(jopt_state), port_moments(opt)
+    assert set(got_m) == set(want_m)
+    for k in want_m:
+        scale = float(np.abs(want_m[k]).max())
+        np.testing.assert_allclose(got_m[k], want_m[k], rtol=0,
+                                   atol=NOISE_FLOOR * scale,
+                                   err_msg=f"gradient {k}")
+        if scale > 0:
+            nonzero = np.abs(want_m[k]) > 0
+            share = float(resolved(want_m[k])[nonzero].mean())
+            assert share >= RESOLVED_SHARE, (k, share)
+    assert any(np.abs(v).max() > 0 for v in got_m.values())
+
+    assert_params_match(named_port(model_to_numpy(tm)), named_jax(jm), want_m,
+                        opt, steps=1)
+    for f, a, b in zip(jstats._fields, stats, jstats):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-3,
+                                   atol=1e-4, err_msg=f)
+
+
+def test_jax_backends_agree_within_noise_floor(jax_run):
+    """The reading behind ``NOISE_FLOOR``: one JAX step with the blend in
+    its Pallas kernels (interpret mode) and one with its XLA scan give
+    every leaf's gradient within the floor of each other (3.4e-5 of the
+    leaf's largest at most on this scene, dense and compacted)."""
+    run, _ = jax_run
+    xla = jax_moments(run(None, 3)[0][0][1])
+    pallas = jax_moments(run(None, 1, pallas=True)[0][0][1])
+    assert set(xla) == set(pallas)
+    for k in xla:
+        scale = float(np.abs(xla[k]).max())
+        np.testing.assert_allclose(pallas[k], xla[k], rtol=0,
+                                   atol=NOISE_FLOOR * scale,
+                                   err_msg=f"gradient {k}")
+
+
+def test_three_step_run_matches_jax(small_models, jax_run):
+    m, vs = small_models
+    cfg = GSConfig(**STEP_CFG)
+    run, (cam, img, depth) = jax_run
+    runs = run(None, 3)
+    tm = model_from_jax_params(jax.tree.map(np.asarray, m), cfg,
+                               device='cpu')
+    tr = Trainer(tm, cfg, cam.intrinsics, vs, device='cpu')
+    got_m = tr.run([(cam.device_arrays('cpu'), t(img), t(depth))],
+                   log_every=1)
+    assert [r['iteration'] for r in tr.history] == [1, 2, 3]
+    for rec, (_, jmet) in zip(tr.history, runs):
+        np.testing.assert_allclose(rec['loss'], float(jmet.loss), rtol=1e-4)
+        assert rec['skipped'] == 0
+    (jm, jopt_state, _), _ = runs[-1]
+    assert_params_match(named_port(model_to_numpy(got_m)), named_jax(jm),
+                        jax_moments(jopt_state), tr.optimizer, steps=3)
+
+
+def test_trainer_refuses_what_is_not_ported(small_models):
+    m, vs = small_models
+    cfg = GSConfig(**{**STEP_CFG, 'update_from': 2, 'update_interval': 4,
+                      'update_until': 100})
+    cam = camera_from_rt(np.eye(3), np.zeros(3), 1.0, 1.0, 32, 32)
+    view = [(cam.device_arrays('cpu'), torch.zeros(32, 32, 3),
+             torch.zeros(32, 32))]
+    tm = model_from_jax_params(jax.tree.map(np.asarray, m), cfg,
+                               device='cpu')
+    tr = Trainer(tm, cfg, cam.intrinsics, vs, device='cpu')
+    with pytest.raises(NotImplementedError, match='adjust_anchor'):
+        tr.run(view, iterations=8)
+    assert tr.step == 0 and not tr.history
+    cfg = GSConfig(**{**STEP_CFG, 'noise_from_step': 2})
+    tr = Trainer(tm, cfg, cam.intrinsics, vs, device='cpu')
+    with pytest.raises(NotImplementedError, match='phase 1'):
+        tr.run(view, iterations=3)
+
+
+def test_fit_single_view_improves_the_render():
+    r = fit_single_view.fit(steps=20, res=RES, n_points=250, device='cpu',
+                            log_every=5)
+    assert np.isfinite(r['loss_last']) and r['loss_last'] < r['loss_first']
+    assert r['l1_after'] < r['l1_before'], r
