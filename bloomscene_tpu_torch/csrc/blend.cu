@@ -14,25 +14,49 @@
 // Outputs, each [P, T] in position space: r, g, b, D, acc, T (float32) and
 // n_contrib (int32, the 1-based slot of the last blended splat).
 //
-// What bounds it on an H100: operations at this slice's shapes -- each
-// (pixel, splat) step is ~30 float operations and one exp, against ~40
-// bytes per splat shared by 256 pixels. Design: one block per tile position
-// with one thread per pixel (the reference renderCUDA shape); splats are
-// staged through shared memory in batches of 256 so every attribute is read
-// from device memory once per tile, and the block leaves as soon as all its
-// pixels have stopped (__syncthreads_count). The TPU's 128-tile lane groups,
-// occupancy-sorted group maxima and unrolled chains have no counterpart:
-// blocks are per tile, so there is no group to balance.
+// What bounds it on an H100: operations -- each (pixel, splat) step is ~30
+// float operations and one exp, against ~40 bytes per splat shared by the
+// tile's pixels. That bound divides them by 67 TFLOP/s, a rate that counts
+// an FMA as two operations; built with --fmad=false every multiply and add
+// issues alone, so about half of that rate is reachable here.
 //
-// Built with --fmad=false so that power, T and the sums round as the plain
-// version's separate multiplies and adds do; a contracted FMA could move a
-// pixel across the 1e-4 stop or the 1/255 skip.
+// What held the first design back (one thread per pixel, batches of 256
+// slots loaded with strided reads between two barriers): a profile of it
+// (profile_blend.py) had ~50 instructions issued a step, 6-10 of them
+// scalar shared loads, in one dependent chain a warp, at ~63% of the issue
+// slots. This design cuts the instructions a step:
+// - each thread takes two horizontally adjacent pixels: one broadcast load
+//   of a splat serves both, dy and c dy^2 are shared, and the two chains
+//   run side by side; a 16x16 tile is 4 warps;
+// - each splat is derived once per block into a 12-float record (three
+//   vector loads): the -0.5 and the sign of b folded into a, c and b, and
+//   a skip threshold, the power below which op e^power < 1/255;
+// - a thread whose two pixels are below the threshold goes to the next
+//   splat without the exp (two thirds of the steps at the orbit's shapes
+//   blend nothing), and the blend itself is branch-free selects;
+// - the rows of batch k + 2 are copied with cp.async and batch k + 1 is
+//   derived while batch k is blended, one barrier a batch of 64 slots;
+// - the block leaves as soon as all its pixels have stopped (the barrier
+//   counts them), a thread when both its pixels have.
+// Blocks are per tile, so the TPU's 128-tile lane groups, occupancy-sorted
+// group maxima and unrolled chains have no counterpart here.
+//
+// Bitwise equal to the plain version: built with --fmad=false, and each
+// pixel's arithmetic is the plain version's in its order (a contracted FMA
+// could move a pixel across the 1e-4 stop or the 1/255 skip). Scaling by
+// -0.5 and negating are exact in binary floating point, so the folded
+// record gives the same power (short of subnormal intermediates, where
+// the power is too small for exp to tell), and the threshold only skips
+// pixels that the alpha test would skip.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int DATA_W = 10;
-constexpr int BATCH = 256;
+constexpr int BATCH = 64;           // slots per staged batch
+constexpr int REC = 12;             // floats per derived splat record
+constexpr int PIX = 2;              // pixels per thread
+constexpr int MAX_THREADS = 512;    // tile 32: 1,024 pixels
 // the JAX package's constants (ops/reference_rasterizer.py), rounded from
 // double to float as a float32 comparison with a Python float rounds them
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
@@ -40,74 +64,169 @@ constexpr float ALPHA_MAX = (float)0.99;
 constexpr float T_EPS = (float)1e-4;
 constexpr float ACC_SEED = (float)1e-6;
 
-__global__ void blend_fwd_kernel(const float* __restrict__ slab,
-                                 const int* __restrict__ counts_p,
-                                 const int* __restrict__ tid, int cap,
-                                 int num_tiles, int tile, int gx,
-                                 float* __restrict__ planes,
-                                 int* __restrict__ ncon_out) {
-  __shared__ float sh[DATA_W][BATCH];
+// The power below which op e^power < 1/255 however expf, logf and the
+// product round (each within 2 ulp; 1e-3 of margin in the exponent): a
+// pixel below it fails the alpha skip, so it skips without the exp.
+// +inf for op = 0 (every pixel skips); NaN for a negative or NaN op, which
+// skips too, as the plain version's alpha test does.
+__device__ __forceinline__ float skip_below(float op) {
+  return logf(ALPHA_MIN / op) - 1e-3f;
+}
+
+// 4 bytes global -> shared without a register; zero-filled when !valid
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
+    const float* __restrict__ slab, const int* __restrict__ counts_p,
+    const int* __restrict__ tid, int cap, int num_tiles, int tile, int gx,
+    float* __restrict__ planes, int* __restrict__ ncon_out) {
+  __shared__ float raw[2][DATA_W][BATCH];             // cp.async targets
+  __shared__ __align__(16) float rec[2][BATCH][REC];  // derived records
   const int p = blockIdx.x;
   const int P = tile * tile;
-  const int sp = threadIdx.x;
+  const int th = threadIdx.x;
   const int t = tid[p];
-  const float px = (float)((t % gx) * tile + sp % tile);
-  const float py = (float)((t / gx) * tile + sp / tile);
   const int cnt = counts_p[p];
 
-  float T = 1.0f, Cr = 0.0f, Cg = 0.0f, Cb = 0.0f, D = 0.0f, acc = ACC_SEED;
-  int done = 0, ncon = 0;
-  for (int base = 0; base < cnt; base += BATCH) {
-    // also the barrier that keeps the previous batch in shared memory
-    // until every pixel has read it
-    if (__syncthreads_count(!done) == 0) break;
-    const int nb = min(BATCH, cnt - base);
-    for (int i = threadIdx.x; i < DATA_W * nb; i += blockDim.x) {
-      const int r = i / nb, j = i % nb;
-      sh[r][j] = slab[((long long)r * cap + base + j) * num_tiles + p];
+  // batch k's rows into raw[k & 1], one 4-byte copy per (row, slot)
+  auto issue = [&](int k) {
+    for (int i = th; i < DATA_W * BATCH; i += blockDim.x) {
+      const int r = i / BATCH, j = i % BATCH, s = k * BATCH + j;
+      const bool ok = s < cnt;
+      copy_async(&raw[k & 1][r][j],
+                 ok ? slab + ((long long)r * cap + s) * num_tiles + p : slab,
+                 ok);
     }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // raw[k & 1] -> rec[k & 1]: {mx, my, skip_below, 0}, {-ca/2, -cc/2, -cb,
+  // op}, {depth, r, g, b}, one slot a thread
+  auto derive = [&](int k) {
+    for (int j = th; j < BATCH; j += blockDim.x) {
+      const float(*x)[BATCH] = raw[k & 1];
+      float* d = rec[k & 1][j];
+      *reinterpret_cast<float4*>(d) =
+          make_float4(x[0][j], x[1][j], skip_below(x[5][j]), 0.0f);
+      *reinterpret_cast<float4*>(d + 4) =
+          make_float4(-0.5f * x[2][j], -0.5f * x[4][j], -x[3][j], x[5][j]);
+      *reinterpret_cast<float4*>(d + 8) =
+          make_float4(x[6][j], x[7][j], x[8][j], x[9][j]);
+    }
+  };
+
+  // the thread's pixels: sp = 2 th and 2 th + 1, one row, adjacent columns
+  const float px0 = (float)((t % gx) * tile + (2 * th) % tile);
+  const float px1 = px0 + 1.0f;
+  const float py = (float)((t / gx) * tile + (2 * th) / tile);
+  float T0 = 1.0f, T1 = 1.0f, Cr0 = 0.0f, Cr1 = 0.0f, Cg0 = 0.0f, Cg1 = 0.0f,
+        Cb0 = 0.0f, Cb1 = 0.0f, D0 = 0.0f, D1 = 0.0f, acc0 = ACC_SEED,
+        acc1 = ACC_SEED;
+  int nc0 = 0, nc1 = 0;
+  bool live0 = true, live1 = true;
+
+  if (cnt > 0) {
+    issue(0);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    for (int j = 0; j < nb && !done; ++j) {
-      const float dx = sh[0][j] - px;
-      const float dy = sh[1][j] - py;
-      const float power = -0.5f * (sh[2][j] * dx * dx + sh[4][j] * dy * dy) -
-                          sh[3][j] * dx * dy;
-      const float alpha = fminf(ALPHA_MAX, sh[5][j] * expf(power));
-      if (!(power <= 0.0f) || !(alpha >= ALPHA_MIN)) continue;
-      const float test_T = T * (1.0f - alpha);
-      if (test_T < T_EPS) {
-        done = 1;
-        break;
-      }
-      const float w = alpha * T;
-      Cr = Cr + w * sh[7][j];
-      Cg = Cg + w * sh[8][j];
-      Cb = Cb + w * sh[9][j];
-      D = D + w * sh[6][j];
-      acc = acc + w;
-      T = test_T;
-      ncon = base + j + 1;
+    derive(0);
+    if (BATCH < cnt) issue(1);
+  }
+  for (int k = 0, base = 0; base < cnt; ++k, base += BATCH) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // publishes rec[k & 1] and raw[(k + 1) & 1]; raw[k & 1] and
+    // rec[(k + 1) & 1] are free once every thread is past it
+    if (__syncthreads_count(live0 || live1) == 0) break;
+    if (base + 2 * BATCH < cnt) issue(k + 2);
+    if (base + BATCH < cnt) derive(k + 1);
+    const float* r = rec[k & 1][0];
+    const float* const end = r + min(BATCH, cnt - base) * REC;
+    for (int slot = base + 1; r < end && (live0 || live1);
+         ++slot, r += REC) {
+      const float4 d0 = *reinterpret_cast<const float4*>(r);
+      // rows: mx, my, skip_below, 0 | -ca/2, -cc/2, -cb, op |
+      // depth, r, g, b
+      const float dy = d0.y - py;
+      const float4 d1 = *reinterpret_cast<const float4*>(r + 4);
+      // -0.5 (a dx^2 + c dy^2) - b dx dy with the -0.5 and the sign taken
+      // into a, c and b: exact scalings, so the same bits
+      const float ccdd = d1.y * dy * dy;
+      const float dx0 = d0.x - px0;
+      const float dx1 = d0.x - px1;
+      const float pw0 = (d1.x * dx0 * dx0 + ccdd) + d1.z * dx0 * dy;
+      const float pw1 = (d1.x * dx1 * dx1 + ccdd) + d1.z * dx1 * dy;
+      const bool n0 = live0 && pw0 >= d0.z;
+      const bool n1 = live1 && pw1 >= d0.z;
+      if (!(n0 || n1)) continue;
+      const float4 d2 = *reinterpret_cast<const float4*>(r + 8);
+      const float a0 = fminf(ALPHA_MAX, d1.w * expf(pw0));
+      const float a1 = fminf(ALPHA_MAX, d1.w * expf(pw1));
+      const bool ok0 = n0 && pw0 <= 0.0f && a0 >= ALPHA_MIN;
+      const bool ok1 = n1 && pw1 <= 0.0f && a1 >= ALPHA_MIN;
+      const float t0 = T0 * (1.0f - a0);
+      const float t1 = T1 * (1.0f - a1);
+      const bool s0 = ok0 && t0 < T_EPS, s1 = ok1 && t1 < T_EPS;
+      const bool b0 = ok0 && !s0, b1 = ok1 && !s1;
+      live0 = live0 && !s0;
+      live1 = live1 && !s1;
+      const float w0 = b0 ? a0 * T0 : 0.0f;
+      const float w1 = b1 ? a1 * T1 : 0.0f;
+      Cr0 = Cr0 + w0 * d2.y;
+      Cr1 = Cr1 + w1 * d2.y;
+      Cg0 = Cg0 + w0 * d2.z;
+      Cg1 = Cg1 + w1 * d2.z;
+      Cb0 = Cb0 + w0 * d2.w;
+      Cb1 = Cb1 + w1 * d2.w;
+      D0 = D0 + w0 * d2.x;
+      D1 = D1 + w1 * d2.x;
+      acc0 = acc0 + w0;
+      acc1 = acc1 + w1;
+      T0 = b0 ? t0 : T0;
+      T1 = b1 ? t1 : T1;
+      nc0 = b0 ? slot : nc0;
+      nc1 = b1 ? slot : nc1;
     }
   }
   const long long plane = (long long)P * num_tiles;
-  const long long o = (long long)sp * num_tiles + p;
-  planes[o] = Cr;
-  planes[plane + o] = Cg;
-  planes[2 * plane + o] = Cb;
-  planes[3 * plane + o] = D;
-  planes[4 * plane + o] = acc;
-  planes[5 * plane + o] = T;
-  ncon_out[o] = ncon;
+  const float out[2][6] = {{Cr0, Cg0, Cb0, D0, acc0, T0},
+                           {Cr1, Cg1, Cb1, D1, acc1, T1}};
+  const int ncs[2] = {nc0, nc1};
+#pragma unroll
+  for (int e = 0; e < PIX; ++e) {
+    const long long o = (long long)(PIX * th + e) * num_tiles + p;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) planes[c * plane + o] = out[e][c];
+    ncon_out[o] = ncs[e];
+  }
 }
 
 }  // namespace
+
+// Block shape of a tile: threads (whole warps) and dynamic shared memory
+// bytes (none: the buffers are static); nonzero when the tile does not fit
+// the design.
+extern "C" int bs_blend_forward_shape(int tile, int* threads, int* smem) {
+  const int n = tile * tile / PIX;
+  if (tile < 1 || tile * tile % (PIX * 32) || n > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  *threads = n;
+  *smem = 0;
+  return 0;
+}
 
 extern "C" int bs_blend_forward(const float* slab, const int* counts_p,
                                 const int* tid, int cap, int num_tiles,
                                 int tile, int gx, float* planes,
                                 int* ncon_out, void* stream) {
+  int threads, smem;
+  const int err = bs_blend_forward_shape(tile, &threads, &smem);
+  if (err) return err;
   if (num_tiles > 0) {
-    blend_fwd_kernel<<<num_tiles, tile * tile, 0, (cudaStream_t)stream>>>(
+    blend_fwd_kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
         slab, counts_p, tid, cap, num_tiles, tile, gx, planes, ncon_out);
   }
   return (int)cudaGetLastError();

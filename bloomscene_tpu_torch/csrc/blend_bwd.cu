@@ -15,51 +15,88 @@
 //   depth, 1) -- the 5-carry suffix form of blend.py:387-418;
 //   h = G dL/dalpha where op G < 0.99 (the alpha clamp), else 0.
 // Per slot, summed over the tile's pixels: h, h dx, h dy, h dx^2, h dx dy,
-// h dy^2 and w * (u_d, u_r, u_g, u_b); from these one thread writes the 10
-// gradient rows of that slot: d mx, d my, d conic a, b, c, d opacity,
-// d depth, d r, d g, d b (blend.py:448-459). Rows at or past the walk are
-// not written; the wrapper hands in a zeroed buffer.
+// h dy^2 and w * (u_d, u_r, u_g, u_b); from these the 10 gradient rows of
+// that slot: d mx, d my, d conic a, b, c, d opacity, d depth, d r, d g, d b
+// (blend.py:448-459). Rows at or past the walk are not written; the
+// wrapper hands in a zeroed buffer.
 //
-// What bounds it on an H100: operations -- each (pixel, slot) step is ~71
-// float operations (one exp among them; chip_smoke.py counts them), against
-// ~40 bytes of slab per slot shared by 256 pixels and 40 bytes of gradient
-// written per slot. Design (simple
-// and right first): one block per tile position, one thread per pixel, as
-// K1; the walked slots are staged in shared memory in batches of 256 from
-// the top down; each slot's ten pixel sums are a fixed tree -- a
-// __shfl_down_sync tree inside each warp, then one thread per channel
-// adds the warp partials in warp order -- so two runs give the same bits
-// (no atomics). The warp partials are double-buffered, one barrier a slot.
+// What bounds it on an H100: operations -- each walked (pixel, slot) step
+// is ~71 float operations with one exp and one division (chip_smoke.py
+// counts them), against ~40 bytes of slab per slot shared by the tile's
+// pixels. That bound divides them by 67 TFLOP/s, a rate that counts an FMA
+// as two operations; built with --fmad=false every multiply and add issues
+// alone, so about half of that rate is reachable here.
 //
-// Built with --fmad=false, and every expression keeps the order of the
-// plain version (ops/cuda/blend.py::blend_backward_plain), so the per-pixel
-// values round alike; only the pixel sums' order differs.
+// What held the first design back (one thread per pixel; per slot ten
+// 5-step shuffle trees, a barrier and 10 of 256 threads writing): the
+// per-slot reduction. A profile of it (profile_blend.py) had 400 shuffles
+// per tile-slot keeping the SM's shuffle unit most of the kernel busy, at
+// about a third of the issue slots used. This design:
+// - gives each thread two horizontally adjacent pixels: half of every
+//   pixel sum is one add in registers, a 16x16 tile is 4 warps, and the
+//   two pixels' chains run side by side (dy and c dy^2 are shared);
+// - skips a slot for a thread where the power alone proves alpha < 1/255
+//   at both its pixels (a threshold per slot, logf(1/255 / op) less a
+//   margin, computed as the slot is staged): a pixel that does not blend
+//   adds exact zeros and keeps its carries, so the skip changes no bit;
+// - reduces the ten per-slot sums across a warp's 32 lanes by recursive
+//   halving inside each rolled group of 4 slots: each exchange sends half
+//   of a lane's values to its partner and adds the other half, first
+//   splitting the ten channels (offset 16), then pairing slots (offsets 8
+//   and 4) -- 35 shuffles per warp per 4 slots, against 200 before; four
+//   lanes per warp are left holding each (slot, channel) partial;
+// - writes the partials to shared memory and walks B = 16 slots per
+//   barrier; after it, one thread per (slot, row) adds that row's partials
+//   in a fixed order and writes its gradient, while the rest go on;
+// - loads the slab rows of batch k + 1 into registers while batch k is
+//   walked and stages them with the threshold as 12-float records (three
+//   vector loads a slot).
+// Every sum has a fixed order, so two runs give the same bits (the only
+// atomic is the integer max of n_contrib).
+//
+// Built with --fmad=false, and every per-pixel expression keeps the order
+// of the plain version (ops/cuda/blend.py::blend_backward_plain), so the
+// per-pixel values round alike; only the pixel sums' order differs.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int DATA_W = 10;
 constexpr int GRAD_W = 10;
-constexpr int BATCH = 256;
-constexpr int MAX_WARPS = 32;
+constexpr int HALF = GRAD_W / 2;   // channels a lane carries after offset 16
+constexpr int B = 16;              // slots walked per barrier
+constexpr int QUAD = 4;            // slots exchanged within one iteration
+constexpr int REC = 12;            // floats per staged slot: the 10 rows,
+                                   // skip_below(op) and a pad
+constexpr int STAGE = B * REC;     // floats per staged batch
+constexpr int PART_STRIDE = B * GRAD_W + 1;  // per partial, padded
+constexpr int MAX_THREADS = 512;   // tile 32: 1,024 pixels, two a thread
+constexpr int MAX_LOADS = (DATA_W * B + 31) / 32;  // staging loads a thread
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float ALPHA_MAX = (float)0.99;
+constexpr unsigned FULL = 0xffffffffu;
 
-// sum over the 32 lanes in a fixed tree; lane 0 holds the result
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+// The power below which op e^power < 1/255 however expf, logf and the
+// product round (each within 2 ulp; 1e-3 of margin in the exponent): a
+// pixel below it does not blend, so it skips without the exp. +inf for
+// op = 0 (every pixel skips).
+__device__ __forceinline__ float skip_below(float op) {
+  return logf(ALPHA_MIN / op) - 1e-3f;
 }
 
-// the warps' partial sums added in warp order
-__device__ __forceinline__ float sum_warps(const float* part, int n_warps) {
-  float r = 0.0f;
-  for (int k = 0; k < n_warps; ++k) r += part[k];
-  return r;
+// out[c] = (hi ? b : a)[c] + the (hi ? a : b)[c] of lane ^ off; the lane
+// with hi keeps b's half of the work, its partner a's
+__device__ __forceinline__ void exchange(float* out, const float* a,
+                                         const float* b, int off, bool hi) {
+#pragma unroll
+  for (int c = 0; c < HALF; ++c) {
+    const float send = hi ? a[c] : b[c];
+    const float keep = hi ? b[c] : a[c];
+    out[c] = keep + __shfl_xor_sync(FULL, send, off);
+  }
 }
 
-__global__ void blend_bwd_kernel(
+__global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
     const float* __restrict__ slab, const int* __restrict__ counts_p,
     const int* __restrict__ tid, const float* __restrict__ final_T,
     const int* __restrict__ ncon, const float* __restrict__ u_r,
@@ -67,98 +104,227 @@ __global__ void blend_bwd_kernel(
     const float* __restrict__ u_d, const float* __restrict__ u_one,
     const float* __restrict__ bg_term, int cap, int num_tiles, int tile,
     int gx, float* __restrict__ grad) {
-  __shared__ float sh[DATA_W][BATCH];
-  __shared__ float part[2][GRAD_W][MAX_WARPS];
+  extern __shared__ __align__(16) float dyn[];
+  float* stage = dyn;               // [3][B][REC]: batches k-1, k, k+1
+  float* part = dyn + 3 * STAGE;    // [2][n_part][PART_STRIDE]
   __shared__ int walk_sh;
   const int p = blockIdx.x;
-  const int sp = threadIdx.x;
-  const int lane = sp & 31, warp = sp >> 5;
-  const int n_warps = blockDim.x >> 5;
+  const int th = threadIdx.x;
+  const int lane = th & 31, warp = th >> 5;
+  const int n_threads = blockDim.x;
+  const int n_part = (n_threads >> 5) * 4;
   const int t = tid[p];
-  const float px = (float)((t % gx) * tile + sp % tile);
-  const float py = (float)((t / gx) * tile + sp / tile);
-  const long long o = (long long)sp * num_tiles + p;
-  const int my_ncon = ncon[o];
-  const float Tf = final_T[o];
-  const float ur = u_r[o], ug = u_g[o], ub = u_b[o], ud = u_d[o],
-              uone = u_one[o];
-  const float tb = -Tf * bg_term[o];
 
-  if (sp == 0) walk_sh = 0;
+  // the thread's pixels: sp = 2 th and 2 th + 1, one row, adjacent columns
+  const float px0 = (float)((t % gx) * tile + (2 * th) % tile);
+  const float px1 = px0 + 1.0f;
+  const float py = (float)((t / gx) * tile + (2 * th) / tile);
+  const long long o0 = (long long)(2 * th) * num_tiles + p;
+  const long long o1 = o0 + num_tiles;
+  const int nc0 = ncon[o0], nc1 = ncon[o1];
+  float T0 = final_T[o0], T1 = final_T[o1];
+  const float ur0 = u_r[o0], ur1 = u_r[o1], ug0 = u_g[o0], ug1 = u_g[o1],
+              ub0 = u_b[o0], ub1 = u_b[o1], ud0 = u_d[o0], ud1 = u_d[o1],
+              uo0 = u_one[o0], uo1 = u_one[o1];
+  const float tb0 = -T0 * bg_term[o0], tb1 = -T1 * bg_term[o1];
+  float Sr0 = 0.0f, Sg0 = 0.0f, Sb0 = 0.0f, Sd0 = 0.0f, S10 = 0.0f;
+  float Sr1 = 0.0f, Sg1 = 0.0f, Sb1 = 0.0f, Sd1 = 0.0f, S11 = 0.0f;
+
+  if (th == 0) walk_sh = 0;
   __syncthreads();
-  atomicMax(&walk_sh, my_ncon);  // integer max: the same result in any order
+  atomicMax(&walk_sh, max(nc0, nc1));  // integer max: any order
   __syncthreads();
   const int walk = min(counts_p[p], walk_sh);
+  const int n_batch = (walk + B - 1) / B;
+  // slot j of batch k is s = walk - 1 - k B - j; s < 0 pads the last batch
 
-  float T = Tf, Sr = 0.0f, Sg = 0.0f, Sb = 0.0f, Sd = 0.0f, S1 = 0.0f;
-  int buf = 0;
-  for (int top = walk; top > 0; top -= BATCH) {
-    const int lo = max(0, top - BATCH);
-    const int nb = top - lo;
-    // also keeps the previous batch in shared memory until all have read it
-    __syncthreads();
-    for (int i = sp; i < DATA_W * nb; i += blockDim.x) {
-      const int r = i / nb, j = i % nb;
-      sh[r][j] = slab[((long long)r * cap + lo + j) * num_tiles + p];
+  float pre[MAX_LOADS];  // batch k's slab rows on their way to stage[k % 3]
+  auto load = [&](int k) {
+#pragma unroll
+    for (int q = 0; q < MAX_LOADS; ++q) {
+      const int i = th + q * n_threads;
+      const int r = i / B, s = walk - 1 - k * B - i % B;
+      pre[q] = (i < DATA_W * B && s >= 0)
+                   ? slab[((long long)r * cap + s) * num_tiles + p]
+                   : 0.0f;
+    }
+  };
+  auto store = [&](int k) {
+    float* dst = stage + (k % 3) * STAGE;
+#pragma unroll
+    for (int q = 0; q < MAX_LOADS; ++q) {
+      const int i = th + q * n_threads;
+      if (i < DATA_W * B) {
+        dst[(i % B) * REC + i / B] = pre[q];
+        if (i / B == 5) dst[(i % B) * REC + DATA_W] = skip_below(pre[q]);
+      }
+    }
+  };
+
+  // the gradient rows of batch k from its partials, one (slot, row) a
+  // thread; each channel's partials added in partial order
+  auto epilogue = [&](int k) {
+    const float* st = stage + (k % 3) * STAGE;
+    const float* pt = part + (k & 1) * n_part * PART_STRIDE;
+    for (int o = th; o < B * GRAD_W; o += n_threads) {
+      const int j = o / GRAD_W, row = o % GRAD_W;
+      const int s = walk - 1 - k * B - j;
+      if (s < 0) continue;
+      auto msum = [&](int c) {
+        float r = 0.0f;
+        for (int q = 0; q < n_part; ++q)
+          r += pt[q * PART_STRIDE + j * GRAD_W + c];
+        return r;
+      };
+      const float* rec = st + j * REC;
+      const float ca = rec[2], cb = rec[3], cc = rec[4], op = rec[5];
+      float g;
+      // the channel algebra of blend.py:448-459
+      switch (row) {
+        case 0: g = -op * (ca * msum(1) + cb * msum(2)); break;  // d mx
+        case 1: g = -op * (cc * msum(2) + cb * msum(1)); break;  // d my
+        case 2: g = -0.5f * op * msum(3); break;                 // d conic a
+        case 3: g = -op * msum(4); break;                        // d conic b
+        case 4: g = -0.5f * op * msum(5); break;                 // d conic c
+        case 5: g = msum(0); break;                              // d opacity
+        default: g = msum(row); break;                           // depth, rgb
+      }
+      grad[((long long)row * cap + s) * num_tiles + p] = g;
+    }
+  };
+
+  const bool h16 = (lane & 16) != 0;
+  if (n_batch > 0) {
+    load(0);
+    store(0);
+  }
+  if (n_batch > 1) load(1);
+  __syncthreads();
+  // one barrier a batch: batch k + 1 is staged and batch k - 1's rows are
+  // written while batch k is walked
+  for (int k = 0; k <= n_batch; ++k) {
+    if (k + 1 < n_batch) {
+      store(k + 1);
+      if (k + 2 < n_batch) load(k + 2);
+    }
+    if (k > 0) epilogue(k - 1);
+    if (k == n_batch) break;
+
+    const float* st = stage + (k % 3) * STAGE;
+    float* pt = part + (k & 1) * n_part * PART_STRIDE;
+#pragma unroll 1
+    for (int q = 0; q < B; q += QUAD) {
+      float pair[HALF], cur[HALF], prev[HALF];
+#pragma unroll
+      for (int i = 0; i < QUAD; ++i) {
+        const int j = q + i;
+        const int s = walk - 1 - k * B - j;
+        const float4 r0 = *reinterpret_cast<const float4*>(st + j * REC);
+        const float4 r1 = *reinterpret_cast<const float4*>(st + j * REC + 4);
+        const float4 r2 = *reinterpret_cast<const float4*>(st + j * REC + 8);
+        const float mx = r0.x, my = r0.y, ca = r0.z, cb = r0.w, cc = r1.x,
+                    op = r1.y, de = r1.z, cr = r1.w, cg = r2.x, cbl = r2.y,
+                    below = r2.z;
+        const float dy = my - py;
+        const float ccdd = cc * dy * dy;
+        const float dx0 = mx - px0;
+        const float dx1 = mx - px1;
+        const float pw0 = -0.5f * (ca * dx0 * dx0 + ccdd) - cb * dx0 * dy;
+        const float pw1 = -0.5f * (ca * dx1 * dx1 + ccdd) - cb * dx1 * dy;
+        const bool n0 = pw0 >= below, n1 = pw1 >= below;
+        float v[GRAD_W];
+#pragma unroll
+        for (int c = 0; c < GRAD_W; ++c) v[c] = 0.0f;
+        // both pixels side by side, each expression the plain version's: a
+        // pixel that does not blend gets w = 0 and dL/dalpha = 0, as there;
+        // s < 0 (padding) fails the unsigned compare
+        if (n0 || n1) {
+          const float G0 = expf(pw0), G1 = expf(pw1);
+          const float oG0 = op * G0, oG1 = op * G1;
+          const float a0 = fminf(ALPHA_MAX, oG0), a1 = fminf(ALPHA_MAX, oG1);
+          const bool b0 = n0 && (pw0 <= 0.0f) && (a0 >= ALPHA_MIN) &&
+                          ((unsigned)s < (unsigned)nc0);
+          const bool b1 = n1 && (pw1 <= 0.0f) && (a1 >= ALPHA_MIN) &&
+                          ((unsigned)s < (unsigned)nc1);
+          const float i0 = 1.0f / (1.0f - a0), i1 = 1.0f / (1.0f - a1);
+          T0 = b0 ? T0 * i0 : T0;
+          T1 = b1 ? T1 * i1 : T1;
+          const float w0 = b0 ? a0 * T0 : 0.0f, w1 = b1 ? a1 * T1 : 0.0f;
+          const float Q0 = ur0 * Sr0 + ug0 * Sg0 + ub0 * Sb0 + ud0 * Sd0 +
+                           uo0 * S10;
+          const float Q1 = ur1 * Sr1 + ug1 * Sg1 + ub1 * Sb1 + ud1 * Sd1 +
+                           uo1 * S11;
+          float d0 = T0 * (ur0 * cr + ug0 * cg + ub0 * cbl + ud0 * de + uo0) +
+                     (tb0 - Q0) * i0;
+          float d1 = T1 * (ur1 * cr + ug1 * cg + ub1 * cbl + ud1 * de + uo1) +
+                     (tb1 - Q1) * i1;
+          d0 = b0 ? d0 : 0.0f;
+          d1 = b1 ? d1 : 0.0f;
+          Sr0 = Sr0 + w0 * cr;
+          Sr1 = Sr1 + w1 * cr;
+          Sg0 = Sg0 + w0 * cg;
+          Sg1 = Sg1 + w1 * cg;
+          Sb0 = Sb0 + w0 * cbl;
+          Sb1 = Sb1 + w1 * cbl;
+          Sd0 = Sd0 + w0 * de;
+          Sd1 = Sd1 + w1 * de;
+          S10 = S10 + w0;
+          S11 = S11 + w1;
+          const float h0 = (oG0 < ALPHA_MAX ? G0 : 0.0f) * d0;
+          const float h1 = (oG1 < ALPHA_MAX ? G1 : 0.0f) * d1;
+          const float hx0 = h0 * dx0, hx1 = h1 * dx1;
+          const float hy0 = h0 * dy, hy1 = h1 * dy;
+          v[0] = h0 + h1;
+          v[1] = hx0 + hx1;
+          v[2] = hy0 + hy1;
+          v[3] = hx0 * dx0 + hx1 * dx1;
+          v[4] = hx0 * dy + hx1 * dy;
+          v[5] = hy0 * dy + hy1 * dy;
+          v[6] = w0 * ud0 + w1 * ud1;
+          v[7] = w0 * ur0 + w1 * ur1;
+          v[8] = w0 * ug0 + w1 * ug1;
+          v[9] = w0 * ub0 + w1 * ub1;
+        }
+        // halve across the lanes: channels by lane bit 4, then slot i's
+        // pair by bit 3 and the quad's two pairs by bit 2
+        exchange(cur, v, v + HALF, 16, h16);
+        if (i & 1) {
+          exchange(cur, prev, cur, 8, (lane & 8) != 0);
+          if (i == 1) {
+#pragma unroll
+            for (int c = 0; c < HALF; ++c) pair[c] = cur[c];
+          } else {
+            exchange(cur, pair, cur, 4, (lane & 4) != 0);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < HALF; ++c) prev[c] = cur[c];
+        }
+      }
+      // lane holds channels 5 bit4 + c of slot q + bit3 + 2 bit2, summed
+      // over the 8 lanes that share its bits 0 and 1
+      const int jl = q + ((lane >> 3) & 1) + (((lane >> 2) & 1) << 1);
+      float* dst = pt + (warp * 4 + (lane & 3)) * PART_STRIDE +
+                   jl * GRAD_W + (h16 ? HALF : 0);
+#pragma unroll
+      for (int c = 0; c < HALF; ++c) dst[c] = cur[c];
     }
     __syncthreads();
-    for (int j = nb - 1; j >= 0; --j) {
-      const int s = lo + j;
-      const float mx = sh[0][j], my = sh[1][j], ca = sh[2][j], cb = sh[3][j],
-                  cc = sh[4][j], op = sh[5][j], de = sh[6][j], cr = sh[7][j],
-                  cg = sh[8][j], cbl = sh[9][j];
-      const float dx = mx - px;
-      const float dy = my - py;
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-      const float G = expf(power);
-      const float oG = op * G;
-      const float alpha = fminf(ALPHA_MAX, oG);
-      const bool blended =
-          (power <= 0.0f) && (alpha >= ALPHA_MIN) && (s < my_ncon);
-      const float inv1ma = 1.0f / (1.0f - alpha);
-      if (blended) T = T * inv1ma;
-      const float w = blended ? alpha * T : 0.0f;
-      const float Q = ur * Sr + ug * Sg + ub * Sb + ud * Sd + uone * S1;
-      float dL_da = T * (ur * cr + ug * cg + ub * cbl + ud * de + uone) +
-                    (tb - Q) * inv1ma;
-      dL_da = blended ? dL_da : 0.0f;
-      Sr = Sr + w * cr;
-      Sg = Sg + w * cg;
-      Sb = Sb + w * cbl;
-      Sd = Sd + w * de;
-      S1 = S1 + w;
-      const float h = (oG < ALPHA_MAX ? G : 0.0f) * dL_da;
-      const float hdx = h * dx;
-      const float hdy = h * dy;
-      float v[GRAD_W] = {h,       hdx,    hdy,    hdx * dx, hdx * dy,
-                         hdy * dy, w * ud, w * ur, w * ug,   w * ub};
-#pragma unroll
-      for (int c = 0; c < GRAD_W; ++c) {
-        v[c] = warp_sum(v[c]);
-        if (lane == 0) part[buf][c][warp] = v[c];
-      }
-      __syncthreads();
-      if (sp < GRAD_W) {
-        // the channel algebra of blend.py:448-459, one row per thread
-        float m[6];
-#pragma unroll
-        for (int c = 0; c < 6; ++c) m[c] = sum_warps(part[buf][c], n_warps);
-        float g;
-        if (sp == 0) g = -op * (ca * m[1] + cb * m[2]);        // d mx
-        else if (sp == 1) g = -op * (cc * m[2] + cb * m[1]);   // d my
-        else if (sp == 2) g = -0.5f * op * m[3];                // d conic a
-        else if (sp == 3) g = -op * m[4];                       // d conic b
-        else if (sp == 4) g = -0.5f * op * m[5];                // d conic c
-        else if (sp == 5) g = m[0];                             // d opacity
-        else g = sum_warps(part[buf][sp], n_warps);             // depth, rgb
-        grad[((long long)sp * cap + s) * num_tiles + p] = g;
-      }
-      buf ^= 1;
-    }
   }
 }
 
 }  // namespace
+
+// Block shape of a tile: threads (whole warps) and dynamic shared memory
+// bytes; nonzero when the tile does not fit the design.
+extern "C" int bs_blend_backward_shape(int tile, int* threads, int* smem) {
+  const int n = tile * tile / 2;
+  if (tile < 1 || tile * tile % 64 || n > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  *threads = n;
+  *smem = (int)sizeof(float) * (3 * STAGE + 2 * (n / 32) * 4 * PART_STRIDE);
+  return 0;
+}
 
 extern "C" int bs_blend_backward(const float* slab, const int* counts_p,
                                  const int* tid, const float* final_T,
@@ -167,8 +333,16 @@ extern "C" int bs_blend_backward(const float* slab, const int* counts_p,
                                  const float* u_d, const float* u_one,
                                  const float* bg_term, int cap, int num_tiles,
                                  int tile, int gx, float* grad, void* stream) {
+  int threads, smem;
+  const int err = bs_blend_backward_shape(tile, &threads, &smem);
+  if (err) return err;
   if (num_tiles > 0) {
-    blend_bwd_kernel<<<num_tiles, tile * tile, 0, (cudaStream_t)stream>>>(
+    // a block may take more than 48 KB of dynamic shared memory (84,736
+    // bytes at tile 32) only when the kernel is allowed it
+    const cudaError_t set = cudaFuncSetAttribute(
+        blend_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (set != cudaSuccess) return (int)set;
+    blend_bwd_kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
         slab, counts_p, tid, final_T, ncon, u_r, u_g, u_b, u_d, u_one,
         bg_term, cap, num_tiles, tile, gx, grad);
   }

@@ -11,12 +11,15 @@ K2 replaces ``blend.py::_bwd_kernel``: the back-to-front walk from final T
 with the 5-carry suffix-sum recurrence, writing per-entry gradients
 [10, cap, T] (see ``csrc/blend_bwd.cu`` for the arithmetic).
 
-The plain versions run the same per-slot recurrences over all pixels of
-all tiles at once, as the TPU kernels do.
+Both kernels run one block per tile position, two adjacent pixels a
+thread (see the sources' notes for the designs). The plain versions run
+the same per-slot recurrences over all pixels of all tiles at once, as the
+TPU kernels do.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Iterator, NamedTuple
 
 import torch
 
@@ -26,9 +29,24 @@ from .build import check, library, require, stream_ptr
 DATA_W = 10      # slab rows: mx, my, ca, cb, cc, op, depth, r, g, b
 GRAD_W = 10      # gradient rows: d mx, my, ca, cb, cc, op, depth, r, g, b
 
+# both kernels give each thread two adjacent pixels and take a tile as one
+# block of whole warps: tile*tile a multiple of 64, at most 1024
+TILE_PIXELS_MULTIPLE = 64
+MAX_PIXELS = 1024
+
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 2)
+
+
+def check_tile(tile: int) -> int:
+    """tile*tile, the pixels of one block of the blend kernels."""
+    P = tile * tile
+    if tile < 1 or P > MAX_PIXELS or P % TILE_PIXELS_MULTIPLE:
+        raise ValueError(f"tile {tile}: the blend kernels need tile*tile <= "
+                         f"{MAX_PIXELS} and a multiple of "
+                         f"{TILE_PIXELS_MULTIPLE}")
+    return P
 
 
 def blend_forward(slab: torch.Tensor, counts_p: torch.Tensor,
@@ -44,10 +62,7 @@ def blend_forward(slab: torch.Tensor, counts_p: torch.Tensor,
     require(slab, torch.float32, (DATA_W, cap, T), "slab", dev)
     require(counts_p, torch.int32, (T,), "counts_p", dev)
     require(tid, torch.int32, (T,), "tid", dev)
-    P = tile * tile
-    if P > 1024:
-        raise ValueError(f"tile {tile}: one thread per pixel needs "
-                         "tile*tile <= 1024")
+    P = check_tile(tile)
     planes = torch.empty((6, P, T), dtype=torch.float32, device=dev)
     ncon = torch.empty((P, T), dtype=torch.int32, device=dev)
     fn = library("blend").bs_blend_forward
@@ -71,38 +86,62 @@ def pixel_coords(tid: torch.Tensor, tile: int, gx: int):
     return px, py
 
 
-def blend_forward_plain(slab, counts_p, tid, tile, gx):
-    _, cap, T = slab.shape
-    P = tile * tile
-    dev = slab.device
+class ForwardSlot(NamedTuple):
+    """One slot s of K1's front-to-back walk, over all pixels [P, T]."""
+    s: int
+    rows: torch.Tensor      # slab[:, s, :], [10, T]
+    power: torch.Tensor
+    alpha: torch.Tensor     # min(0.99, op e^power)
+    visit: torch.Tensor     # s < the tile's count and the pixel not stopped
+    blend: torch.Tensor     # visited, blendable and not the stopping splat
+    T: torch.Tensor         # transmittance before the slot
+    T_next: torch.Tensor    # and after it
+
+
+def forward_slots(slab, counts_p, tid, tile, gx) -> Iterator[ForwardSlot]:
+    """K1's per-pixel rules, slot by slot, over every pixel of every tile at
+    once (the plain version's walk; profile_blend.py counts its work)."""
+    T = slab.shape[2]
     px, py = pixel_coords(tid, tile, gx)
-    Tr = torch.ones((P, T), dtype=torch.float32, device=dev)
-    Cr, Cg, Cb, D = (torch.zeros((P, T), dtype=torch.float32, device=dev)
-                     for _ in range(4))
-    acc = torch.full((P, T), ACC_SEED, dtype=torch.float32, device=dev)
-    done = torch.zeros((P, T), dtype=torch.bool, device=dev)
-    ncon = torch.zeros((P, T), dtype=torch.int32, device=dev)
+    Tr = torch.ones((tile * tile, T), dtype=torch.float32, device=slab.device)
+    done = torch.zeros(Tr.shape, dtype=torch.bool, device=slab.device)
     n_slots = int(counts_p.max()) if T else 0
     for s in range(n_slots):
-        mx, my, ca, cb, cc, op, de, cr, cg, cbl = slab[:, s, :]
+        rows = slab[:, s, :]
+        mx, my, ca, cb, cc, op = rows[:6]
         dx = mx - px
         dy = my - py
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
-        ok = ((s < counts_p) & (power <= 0.0) & (alpha >= ALPHA_MIN)
-              & ~done)
+        visit = (s < counts_p) & ~done
+        ok = visit & (power <= 0.0) & (alpha >= ALPHA_MIN)
         test_T = Tr * (1.0 - alpha)
         term = ok & (test_T < T_EPS)
         blend = ok & ~term
         done = done | term
-        w = torch.where(blend, alpha * Tr, 0.0)
+        T_next = torch.where(blend, test_T, Tr)
+        yield ForwardSlot(s, rows, power, alpha, visit, blend, Tr, T_next)
+        Tr = T_next
+
+
+def blend_forward_plain(slab, counts_p, tid, tile, gx):
+    P, T = tile * tile, slab.shape[2]
+    dev = slab.device
+    Tr = torch.ones((P, T), dtype=torch.float32, device=dev)
+    Cr, Cg, Cb, D = (torch.zeros((P, T), dtype=torch.float32, device=dev)
+                     for _ in range(4))
+    acc = torch.full((P, T), ACC_SEED, dtype=torch.float32, device=dev)
+    ncon = torch.zeros((P, T), dtype=torch.int32, device=dev)
+    for st in forward_slots(slab, counts_p, tid, tile, gx):
+        de, cr, cg, cbl = st.rows[6:]
+        w = torch.where(st.blend, st.alpha * st.T, 0.0)
         Cr = Cr + w * cr
         Cg = Cg + w * cg
         Cb = Cb + w * cbl
         D = D + w * de
         acc = acc + w
-        Tr = torch.where(blend, test_T, Tr)
-        ncon = torch.where(blend, s + 1, ncon)
+        Tr = st.T_next
+        ncon = torch.where(st.blend, st.s + 1, ncon)
     return Cr, Cg, Cb, D, acc, Tr, ncon
 
 
@@ -121,10 +160,7 @@ def blend_backward(slab: torch.Tensor, counts_p: torch.Tensor,
                                     ncon, u_r, u_g, u_b, u_d, u_one, bg_term)
     dev = slab.device
     _, cap, T = slab.shape
-    P = tile * tile
-    if P > 1024 or P % 32:
-        raise ValueError(f"tile {tile}: one thread per pixel needs "
-                         "tile*tile <= 1024 and a multiple of 32")
+    P = check_tile(tile)
     require(slab, torch.float32, (DATA_W, cap, T), "slab", dev)
     require(counts_p, torch.int32, (T,), "counts_p", dev)
     require(tid, torch.int32, (T,), "tid", dev)

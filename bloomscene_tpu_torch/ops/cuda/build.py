@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles, at first use, into
 ``bloomscene_tpu_torch/build/libbs_<name>_<digest>.so`` with a plain C
-interface; the digest covers the source and the flags, so an edited
-source rebuilds. All missing libraries compile in parallel (one ``nvcc``
+interface, and nvcc's output (the ptxas report) beside it as ``.log``;
+the digest covers the source and the flags, so an edited source
+rebuilds. All missing libraries compile in parallel (one ``nvcc``
 each). There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
@@ -25,9 +26,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each library built
-# by this process, keyed by kernel name
-build_logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -69,15 +67,22 @@ def build_all() -> float:
     failed = []
     for name, tmp, proc in procs:
         out, _ = proc.communicate()
-        build_logs[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            library_path(name).with_suffix(".log").write_text(out)
             os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the built library ``name`` (the ptxas report:
+    registers, shared memory, spills), or "" before it is built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -9,7 +9,9 @@ nonzero:
 
 1. build: compile the CUDA kernels from ``bloomscene_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and load them; the card's name and power
-   limit from nvidia-smi.
+   limit from nvidia-smi. A spill that ptxas reports for either blend
+   kernel (K1, K2) fails the run: they keep their per-pixel state in
+   registers.
 2. scene: a seeded room-sized point cloud (~2M points on the walls, floor
    and ceiling of a cylinder around the orbit) -> ``init_model`` at
    ``GSConfig(voxel_size=0.03)``, ~110K anchors; features, offsets and head
@@ -50,8 +52,9 @@ nonzero:
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
 K4 at the render's shapes with their training shapes under
-``train_shape``, K2 at the training shape), the one before it the card's
-name and power limit; the last line is
+``train_shape``, K2 at the training shape; for K1 and K2 also the block
+shape, dynamic and static shared memory and registers), the one before it
+the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 before
 printing anything on stdout.
 """
@@ -59,6 +62,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -177,6 +181,39 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers, static shared memory and spill bytes from the
+    ``nvcc -Xptxas -v`` output of one library (None where not printed)."""
+    regs = re.search(r"Used (\d+) registers", log)
+    smem = re.search(r"(\d+) bytes smem", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        log)
+    return {"registers": int(regs.group(1)) if regs else None,
+            "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            "spill_bytes": (sum(int(a) + int(b) for a, b in spills)
+                            if spills else None)}
+
+
+def launch_shape(name: str, tile: int) -> dict:
+    """The block a blend kernel (library ``name``: "blend" or
+    "blend_bwd") launches for ``tile``, as its library computes it, with
+    the ptxas report of this run's build."""
+    import ctypes
+    from bloomscene_tpu_torch.ops.cuda import build
+    fn = getattr(build.library(name), {
+        "blend": "bs_blend_forward_shape",
+        "blend_bwd": "bs_blend_backward_shape"}[name])
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    build.check(fn(tile, ctypes.byref(threads), ctypes.byref(smem)),
+                f"{name} shape")
+    return {"block": [threads.value, 1, 1],
+            "dynamic_smem_bytes": smem.value,
+            **ptxas_report(build.build_log(name))}
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -283,6 +320,7 @@ def forward_kernel_rows(res, intr, cfg, pcap):
         plain_ms=time_ms(lambda: blend_forward_plain(
             bins.slab, counts_p, bins.perm, tile, gx), 2),
         bound_ms=t_bytes, bound_by=by, library_ms=None,
+        **launch_shape("blend", tile),
         shapes={"slab": list(bins.slab.shape),
                 "max_count": int(counts_p.max()),
                 "sum_counts": int(counts_p.sum())}))
@@ -464,6 +502,33 @@ def train_phase(model, cams, frames, depths, voxel: float, counters: dict,
     return trainer, cfg, views, steps, summary, all(checks.values())
 
 
+def train_blend_inputs(trainer, cfg, views):
+    """One training step's render of the first view and the cotangents of
+    its loss: (res, counts_p, gx, K1's final_T and n_contrib, the six
+    cotangent planes K2 reads)."""
+    from bloomscene_tpu_torch.models.render import prefilter_anchors, render
+    from bloomscene_tpu_torch.ops.cuda.blend import blend_forward
+    from bloomscene_tpu_torch.ops.cuda.wrapper import cotangent_planes
+    from bloomscene_tpu_torch.ops.tiles import tile_grid
+    from bloomscene_tpu_torch.train.loop import compute_losses
+    cam, gt_image, gt_depth = views[0]
+    intr, model, tile = trainer.intr, trainer.model, cfg.tile_size
+    gx, gy = tile_grid(intr.width, intr.height, tile)
+    with torch.enable_grad():
+        res = render(model, intr, cam, cfg, mode="train", bg=trainer.bg,
+                     visible=prefilter_anchors(model, intr, cam))
+        loss, _ = compute_losses(res, gt_image, gt_depth, cfg)
+        outs = (res.out.color, res.out.depth, res.out.alpha, res.out.final_T)
+        cot = torch.autograd.grad(loss, outs, allow_unused=True)
+    cot = [torch.zeros_like(o) if g is None else g for o, g in zip(outs, cot)]
+    bins = res.bins
+    counts_p = bins.counts[bins.perm.long()].contiguous()
+    _, _, _, D, acc, Tf, ncon = blend_forward(bins.slab, counts_p, bins.perm,
+                                              tile, gx)
+    u = cotangent_planes(*cot, trainer.bg, acc, D, bins.perm, tile, gx, gy)
+    return res, counts_p, gx, Tf, ncon, u
+
+
 def train_kernel_checks(trainer, cfg, views):
     """On the inputs of one training step (the trained model, the first
     view): K3, K4 and K1 at the training shapes, and K2 against its plain
@@ -483,35 +548,16 @@ def train_kernel_checks(trainer, cfg, views):
        the nonzero entries must have a tolerance below a tenth of their
        value, and planted faults (each row zeroed in turn, the depth row
        shifted by one slot) must fail this check."""
-    from bloomscene_tpu_torch.models.render import prefilter_anchors, render
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
                                                      blend_backward_plain,
-                                                     blend_forward,
                                                      blend_walk)
-    from bloomscene_tpu_torch.ops.cuda.wrapper import (cotangent_planes,
-                                                       reduce_entry_grads)
-    from bloomscene_tpu_torch.ops.tiles import tile_grid
-    from bloomscene_tpu_torch.train.loop import compute_losses
-    cam, gt_image, gt_depth = views[0]
+    from bloomscene_tpu_torch.ops.cuda.wrapper import reduce_entry_grads
     intr = trainer.intr
     tile, cap = cfg.tile_size, cfg.max_splats_per_tile
-    gx, gy = tile_grid(intr.width, intr.height, tile)
-    model = trainer.model
-    with torch.enable_grad():
-        res = render(model, intr, cam, cfg, mode="train", bg=trainer.bg,
-                     visible=prefilter_anchors(model, intr, cam))
-        loss, _ = compute_losses(res, gt_image, gt_depth, cfg)
-        outs = (res.out.color, res.out.depth, res.out.alpha, res.out.final_T)
-        cot = torch.autograd.grad(loss, outs, allow_unused=True)
-    cot = [torch.zeros_like(o) if g is None else g for o, g in zip(outs, cot)]
+    res, counts_p, gx, Tf, ncon, u = train_blend_inputs(trainer, cfg, views)
     bins = res.bins
     fwd_rows, fwd_ok = forward_kernel_rows(res, intr, cfg,
                                            int(bins.src_lane.numel()))
-
-    counts_p = bins.counts[bins.perm.long()].contiguous()
-    _, _, _, D, acc, Tf, ncon = blend_forward(bins.slab, counts_p, bins.perm,
-                                              tile, gx)
-    u = cotangent_planes(*cot, trainer.bg, acc, D, bins.perm, tile, gx, gy)
     base = (bins.slab, counts_p, bins.perm, tile, gx, Tf, ncon)
     natural = bool(torch.allclose(blend_backward(*base, *u),
                                   blend_backward_plain(*base, *u),
@@ -570,6 +616,7 @@ def train_kernel_checks(trainer, cfg, views):
         reduce_ms=time_ms(lambda: reduce_entry_grads(
             got, bins.src_lane, bins.starts_by_id, bins.ends_by_id), 20),
         bound_ms=t_bytes, bound_by=by, library_ms=None,
+        **launch_shape("blend_bwd", tile),
         shapes={"grad": list(got.shape), "max_walk": int(walk.max()),
                 "sum_walk": int(walk.sum()),
                 "sum_n_contrib": int(ncon.sum())})
@@ -598,11 +645,18 @@ def main() -> int:
     build.build_all()
     for name in build.KERNELS:
         build.library(name)
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
+    ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
                     if "Used" in ln or "spill" in ln]
-             for name, log in build.build_logs.items()}
+             for name in build.KERNELS}
+    # the blend kernels keep their state in registers: a spill, or no
+    # report to show there is none, fails
+    spills = {name: ptxas_report(build.build_log(name))
+              ["spill_bytes"] for name in ("blend", "blend_bwd")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "card": card, "ptxas": ptxas})
+          "card": card, "ptxas": ptxas, "blend_spill_bytes": spills})
+    if any(v != 0 for v in spills.values()):
+        failed.append("build (a blend kernel spills, or has no ptxas "
+                      "report)")
 
     # 2. scene
     cfg = GSConfig(voxel_size=0.03)
@@ -697,7 +751,9 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_render", "launches_train", "train_shape")
+            "launches_render", "launches_train", "block",
+            "dynamic_smem_bytes", "static_smem_bytes", "registers",
+            "train_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:

@@ -7,10 +7,17 @@ JAX: ``python -m pytest tests/test_torch_kernels.py -q`` there runs the
 
 Tolerances: K3 (pair expansion) and K4 (slab expansion) bitwise; K1 (blend
 forward) 1e-5 on color, acc and T and 1e-4 on the depth sum, the
-tolerances of tests/test_pallas_blend.py:48-52; K2 (blend backward) atol
-2e-6 + rtol 2e-4, those of tests/test_pallas_blend.py:79-80 (the kernel
-sums each slot's pixels in a fixed tree, the plain version in torch's
-order), and bitwise equal to itself from one launch to the next.
+tolerances of tests/test_pallas_blend.py:48-52, on a projected scene, and
+bitwise on the synthetic edge cases; K2 (blend backward) atol 2e-6 + rtol
+2e-4, those of tests/test_pallas_blend.py:79-80 (the kernel sums each
+slot's pixels in a fixed tree, the plain version in torch's order), at
+the loss's scale on the projected scene, and at a per-pixel scale on the
+edge cases with the rtol applied to the summed magnitudes of each entry's
+pixel terms (the rounding of a sum in another order); bitwise equal to
+itself from one launch to the next.
+
+``blend_case`` builds the edge cases' slabs; tests/test_torch_blend_edges.py
+holds the plain versions against the JAX package on the same cases.
 """
 import numpy as np
 import pytest
@@ -21,6 +28,65 @@ from bloomscene_tpu_torch.ops.cuda import build
 
 torch.set_num_threads(2)
 TILE = 16
+CASE_TILES, CASE_GX, CASE_CAP = 4, 2, 40   # 2 x 2 tiles, 40 slots each
+BLEND_CASES = ('walk0', 'odd_walk', 'full_column', 'early_stop', 'mixed',
+               'thin')
+
+
+def blend_case(case: str, tile: int, seed: int = 0):
+    """A synthetic slab [10, 40, 4] over 2 x 2 tiles of ``tile`` pixels, its
+    counts and its tile ids (positions permuted), for the edge cases of the
+    blend kernels' batching: slots past a tile's count hold stray splats,
+    as the next tile's do in a real slab.
+
+    - walk0: every splat far outside its tile (n_contrib 0, so K2 walks
+      nothing though the counts are not 0), one tile empty;
+    - odd_walk: counts 13, 21, 40 and 3 (not multiples of K2's batch of 16
+      slots or K1's of 64);
+    - full_column: faint wide splats that every pixel blends in every
+      slot, so K2 walks the whole column (walk = cap);
+    - early_stop: opaque wide splats (alpha 0.98-0.99) that stop every
+      pixel at its third slot (T < 1e-4), well before the count;
+    - mixed: random counts and splats in and around each tile;
+    - thin: as mixed with needle-like splats (axes 0.3 and 12 pixels):
+      nearly singular conics, whose power terms cancel most."""
+    rng = np.random.default_rng(seed)
+    T, cap = CASE_TILES, CASE_CAP
+    counts = {'walk0': [40, 17, 0, 40], 'odd_walk': [13, 21, 40, 3],
+              'full_column': [cap] * T, 'early_stop': [cap] * T,
+              'mixed': list(rng.integers(0, cap + 1, T)),
+              'thin': list(rng.integers(0, cap + 1, T))}[case]
+    tid = np.array([2, 0, 3, 1], np.int32)
+    slab = np.zeros((10, cap, T), np.float32)
+    for p in range(T):
+        ox = (tid[p] % CASE_GX) * tile
+        oy = (tid[p] // CASE_GX) * tile
+        sig = rng.uniform(1.0, tile / 2, (cap, 2))
+        mx = rng.uniform(ox - 2, ox + tile + 2, cap)
+        my = rng.uniform(oy - 2, oy + tile + 2, cap)
+        op = rng.uniform(0.05, 0.95, cap)
+        if case == 'walk0':
+            mx = mx + 50.0 * tile
+        elif case == 'thin':
+            sig = np.stack([np.full(cap, 0.3), np.full(cap, 12.0)], 1)
+        elif case in ('full_column', 'early_stop'):
+            sig = np.full((cap, 2), 4.0 * tile)
+            mx = np.full(cap, ox + tile / 2)
+            my = np.full(cap, oy + tile / 2)
+            op = np.full(cap, 0.02 if case == 'full_column' else 0.999)
+        th = rng.uniform(0, np.pi, cap)
+        c, s = np.cos(th), np.sin(th)
+        # conic = inverse of R diag(sig^2) R^T
+        ia, ib = 1 / sig[:, 0] ** 2, 1 / sig[:, 1] ** 2
+        slab[0, :, p], slab[1, :, p] = mx, my
+        slab[2, :, p] = c * c * ia + s * s * ib
+        slab[3, :, p] = c * s * (ia - ib)
+        slab[4, :, p] = s * s * ia + c * c * ib
+        slab[5, :, p] = op
+        slab[6, :, p] = rng.uniform(1, 5, cap)
+        slab[7:10, :, p] = rng.uniform(0, 1, (3, cap))
+    return (torch.from_numpy(slab), torch.tensor(counts, dtype=torch.int32),
+            torch.from_numpy(tid))
 
 
 def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
@@ -31,6 +97,38 @@ def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     with pytest.raises(RuntimeError, match='nvcc not found'):
         build.library('blend')
+
+
+@pytest.mark.parametrize('kernel,tile,error', [
+    ('forward', 6, ValueError), ('forward', 12, ValueError),
+    ('forward', 40, ValueError), ('backward', 4, ValueError),
+    ('forward', 8, RuntimeError), ('backward', 24, RuntimeError)])
+def test_blend_wrappers_check_tiles(tmp_path, monkeypatch, kernel, tile,
+                                    error):
+    """A block of either blend kernel is one tile of two-pixel threads in
+    whole warps: tile*tile a multiple of 64, at most 1024. Tensors off the
+    CPU go to the kernel (here on the meta device, which has shapes and no
+    memory): an unfit tile raises before anything is built, a fitting one
+    reaches the build, which raises without nvcc (no fallback)."""
+    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
+                                                     blend_forward)
+    monkeypatch.setattr(build, 'BUILD_DIR', tmp_path)
+    monkeypatch.setattr(build, '_loaded', {})
+    monkeypatch.setenv('PATH', str(tmp_path))
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+    dev = torch.device('meta')
+    T, P = 4, tile * tile
+    slab = torch.empty((10, 8, T), device=dev)
+    ints = torch.empty(T, dtype=torch.int32, device=dev)
+    with pytest.raises(error, match='multiple of 64' if error is ValueError
+                       else 'nvcc not found'):
+        if kernel == 'forward':
+            blend_forward(slab, ints, ints, tile, 2)
+        else:
+            planes = [torch.empty((P, T), device=dev) for _ in range(7)]
+            ncon = torch.empty((P, T), dtype=torch.int32, device=dev)
+            blend_backward(slab, ints, ints, tile, 2, planes[0], ncon,
+                           *planes[1:])
 
 
 @pytest.mark.cuda
@@ -99,3 +197,50 @@ def test_kernels_match_plain(rng):
     assert float(want.abs().max()) > 0
     torch.testing.assert_close(got, want, atol=2e-6, rtol=2e-4)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case,tile', [(c, 16) for c in BLEND_CASES]
+                         + [('mixed', 8), ('full_column', 8), ('mixed', 24),
+                            ('mixed', 32), ('full_column', 32)])
+def test_blend_kernels_edge_cases(case, tile):
+    """K1 bitwise and K2 within the rounding of its pixel sums, against
+    their plain versions, at the edges of the kernels' slot batches and at
+    tiles 8 (a one-warp block), 24 (nine warps, K2 just under 48 KB of
+    shared memory) and 32 (K2 above 48 KB) beside 16; K2 twice, bitwise,
+    with every row at or past a tile's walk zero."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
+                                                     blend_backward_plain,
+                                                     blend_forward,
+                                                     blend_forward_plain,
+                                                     blend_walk)
+    dev = torch.device('cuda')
+    slab, counts, tid = (x.to(dev) for x in blend_case(case, tile))
+    got = blend_forward(slab, counts, tid, tile, CASE_GX)
+    want = blend_forward_plain(slab, counts, tid, tile, CASE_GX)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    Tf, ncon = want[5], want[6]
+    walk = blend_walk(counts, ncon)
+    expect_walk = {'walk0': [0] * 4, 'full_column': [CASE_CAP] * 4,
+                   'early_stop': [2] * 4}
+    if case in expect_walk:
+        assert walk.tolist() == expect_walk[case]
+    rng = np.random.default_rng(1)
+    u = [torch.from_numpy(rng.normal(size=Tf.shape).astype(np.float32)
+                          ).to(dev) for _ in range(6)]
+    args = (slab, counts, tid, tile, CASE_GX, Tf, ncon, *u)
+    got = blend_backward(*args)
+    again = blend_backward(*args)
+    want = blend_backward_plain(*args)
+    tol = 2e-6 + 2e-4 * blend_backward_plain(*args, magnitude=True)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= tol).all())
+    assert torch.equal(got, again)
+    past = (torch.arange(CASE_CAP, device=dev)[:, None] >= walk[None, :])
+    assert bool((got[:, past] == 0).all())
+    if int(walk.sum()):
+        assert float(want.abs().max()) > 0
