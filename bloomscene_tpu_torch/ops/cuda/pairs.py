@@ -42,6 +42,8 @@ def expand_pairs(starts_full: torch.Tensor, x0: torch.Tensor,
                                   packed_key)
     dev = starts_full.device
     n = x0.shape[0]
+    if n == 0:
+        raise ValueError("expand_pairs: no ranks (n == 0)")
     require(starts_full, torch.int32, (n + 1,), "starts_full", dev)
     for name, t in (("x0", x0), ("y0", y0), ("w", w), ("order", order)):
         require(t, torch.int32, (n,), name, dev)

@@ -9,9 +9,8 @@ nonzero:
 
 1. build: compile the CUDA kernels from ``bloomscene_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and load them; the card's name and power
-   limit from nvidia-smi. A spill that ptxas reports for either blend
-   kernel (K1, K2) fails the run: they keep their per-pixel state in
-   registers.
+   limit from nvidia-smi. A spill that ptxas reports for any kernel fails
+   the run: each keeps its per-thread state in registers.
 2. scene: a seeded room-sized point cloud (~2M points on the walls, floor
    and ceiling of a cylinder around the orbit) -> ``init_model`` at
    ``GSConfig(voxel_size=0.03)``, ~110K anchors; features, offsets and head
@@ -24,7 +23,9 @@ nonzero:
 4. kernels: on one frame's real inputs, K3 (pair expansion) and K4 (slab
    expansion) must equal their plain versions bit for bit, K1 (blend
    forward) within 1e-5 (color, acc, T) and 1e-4 (depth sum), the
-   tolerances of tests/test_pallas_blend.py; times by CUDA events.
+   tolerances of tests/test_pallas_blend.py; times by CUDA events around
+   calls queued behind a device-side wait, so they are the device's time
+   and not the wrappers' host overhead.
 5. reference: a 128x128 view rasterized on the card and by the plain
    PyTorch path on the CPU from the same projected splats must agree
    within the same tolerances.
@@ -52,8 +53,9 @@ nonzero:
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
 K4 at the render's shapes with their training shapes under
-``train_shape``, K2 at the training shape; for K1 and K2 also the block
-shape, dynamic and static shared memory and registers), the one before it
+``train_shape``, K2 at the training shape; the ptxas report of each:
+registers, static shared memory, spill bytes; for K1 and K2 also the
+block shape and dynamic shared memory), the one before it
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 before
 printing anything on stdout.
@@ -76,6 +78,8 @@ ROOM_HALF_HEIGHT = 1.2
 N_FRAMES = 8
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+SLEEP_CYCLES_PER_S = 2.0e9     # torch.cuda._sleep's unit at the H100's
+                               # 1.98 GHz boost clock (longer when slower)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BLEND_OPS_PER_STEP = 30        # float operations per (pixel, splat) step
 # K2, per walked (pixel, slot) step, counted from csrc/blend_bwd.cu: offsets
@@ -160,11 +164,25 @@ def orbit_cameras(n_frames: int, W: int, H: int, repo: str):
             for i in pick]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the card: one warm-up, then CUDA
-    events around ``reps`` calls."""
+def hold_device(fn, reps: int) -> None:
+    """Queue a device-side wait longer than the host takes to enqueue
+    ``reps`` calls of ``fn`` (timed once, capped at 1 s), so that CUDA
+    events recorded after it time the calls' device work back to back and
+    not a wrapper's host overhead (argument checks, allocation, the ctypes
+    launch), which exceeds the device time of the binning kernels."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    wait_s = min(1.0, 1.5 * reps * (time.perf_counter() - t0) + 1e-3)
+    torch.cuda._sleep(int(wait_s * SLEEP_CYCLES_PER_S))
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call on the card: one warm-up, then CUDA
+    events around ``reps`` calls queued behind ``hold_device``."""
+    fn()
+    torch.cuda.synchronize()
+    hold_device(fn, reps)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -230,10 +248,53 @@ def kernel_checks(model, cam, cfg, vcap, pcap):
     return forward_kernel_rows(res, cam.intrinsics, cfg, pcap)
 
 
+def k3_bound(args) -> tuple[float, str]:
+    """K3's least time on these inputs: it writes 8 bytes a slot and reads
+    the rows of the ranks that own a live slot (starts, x0, y0, w, order
+    and, with the cull, six atab floats) once, plus one search path over
+    the starts; it computes ~60 float operations a live slot."""
+    n = args["x0"].shape[0]
+    pcap = args["pair_capacity"]
+    live_slots = min(int(args["starts_full"][n]), pcap)
+    live_ranks = int((args["starts_full"][:n] < live_slots).sum())
+    words = 5 + (6 if args["atab"] is not None else 0)
+    return bound(8 * pcap + 4 * words * live_ranks
+                 + 4 * (n + 1).bit_length(), 60 * live_slots)
+
+
+def k4_bound(asT, t_start_p, cap) -> tuple[float, str]:
+    """K4's least time: each distinct column of asT the slab takes read
+    once, the starts read once, the slab written once."""
+    from bloomscene_tpu_torch.ops.cuda.expand import slab_index
+    cols = int(torch.unique(slab_index(t_start_p, asT.shape[1], cap)).numel())
+    return bound(4 * (asT.shape[0] * cols + t_start_p.numel()
+                      + asT.shape[0] * cap * t_start_p.numel()), 0)
+
+
+@torch.no_grad()
+def binning_inputs(res, intr, cfg, pcap):
+    """The inputs K3 and K4 take in one render: K3's keyword arguments
+    (from the projected splats and their opacities) and K4's (asT,
+    t_start_p) in position order."""
+    from bloomscene_tpu_torch.ops.projection import ProjectedSplats
+    from bloomscene_tpu_torch.ops.tile_rasterizer import attr_rows
+    from bloomscene_tpu_torch.ops.tiles import (pair_kernel_inputs,
+                                                sorted_attr_table)
+    proj = ProjectedSplats(*(t.detach() for t in res.proj))
+    opac = torch.where(proj.valid, res.dec.opacity.detach(), 0.0)
+    args = pair_kernel_inputs(proj, intr.width, intr.height, cfg.tile_size,
+                              pcap, opac)
+    bins = res.bins
+    asT = sorted_attr_table(attr_rows(proj, res.dec.color.detach(), opac),
+                            bins.gauss_sorted, cfg.max_splats_per_tile)
+    return args, asT, bins.t_start[bins.perm.long()].contiguous()
+
+
 @torch.no_grad()
 def forward_kernel_rows(res, intr, cfg, pcap):
     """K3, K4 and K1 against their plain versions on one render's projected
     splats, colors, opacities and bins."""
+    from bloomscene_tpu_torch.ops.cuda import build
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_forward,
                                                      blend_forward_plain)
     from bloomscene_tpu_torch.ops.cuda.expand import (expand_slab,
@@ -241,26 +302,20 @@ def forward_kernel_rows(res, intr, cfg, pcap):
                                                       slab_index)
     from bloomscene_tpu_torch.ops.cuda.pairs import (expand_pairs,
                                                      expand_pairs_plain)
-    from bloomscene_tpu_torch.ops.projection import ProjectedSplats
-    from bloomscene_tpu_torch.ops.tile_rasterizer import attr_rows
-    from bloomscene_tpu_torch.ops.tiles import (pair_kernel_inputs,
-                                                sorted_attr_table, tile_grid)
+    from bloomscene_tpu_torch.ops.tiles import tile_grid
     W, H, tile, cap = intr.width, intr.height, cfg.tile_size, \
         cfg.max_splats_per_tile
     gx, _ = tile_grid(W, H, tile)
-    proj = ProjectedSplats(*(t.detach() for t in res.proj))
     bins = res.bins
-    color = res.dec.color.detach()
-    opac = torch.where(proj.valid, res.dec.opacity.detach(), 0.0)
+    args, asT, t_start_p = binning_inputs(res, intr, cfg, pcap)
     rows = []
 
     # K3: pair expansion
-    args = pair_kernel_inputs(proj, W, H, tile, pcap, opac)
     n = args["x0"].shape[0]
     key_k, gid_k = expand_pairs(**args)
     key_p, gid_p = expand_pairs_plain(**args)
     k3_equal = torch.equal(key_k, key_p) and torch.equal(gid_k, gid_p)
-    t_bytes, by = bound(4 * ((n + 1) + 4 * n + 6 * n) + 8 * pcap, 60 * pcap)
+    t_bytes, by = k3_bound(args)
     rows.append(dict(
         name="pair_expansion", route="cuda",
         source="bloomscene_tpu_torch/csrc/pairs.cu",
@@ -270,20 +325,17 @@ def forward_kernel_rows(res, intr, cfg, pcap):
         ms=time_ms(lambda: expand_pairs(**args), 50),
         plain_ms=time_ms(lambda: expand_pairs_plain(**args), 10),
         bound_ms=t_bytes, bound_by=by, library_ms=None,
+        **ptxas_report(build.build_log("pairs")),
         shapes={"n": n, "pair_capacity": pcap,
+                "total_pairs": int(args["starts_full"][n]),
                 "packed_key": args["packed_key"]}))
 
     # K4: slab expansion
-    asT = sorted_attr_table(attr_rows(proj, color, opac),
-                            bins.gauss_sorted, cap)
-    t_start_p = bins.t_start[bins.perm.long()].contiguous()
     slab_k = expand_slab(asT, t_start_p, cap)
     slab_p = expand_slab_plain(asT, t_start_p, cap)
     idx = slab_index(t_start_p, asT.shape[1], cap)
     k4_equal = torch.equal(slab_k, slab_p) and torch.equal(slab_k, bins.slab)
-    cols = int(torch.unique(idx).numel())
-    t_bytes, by = bound(4 * (asT.shape[0] * cols + t_start_p.numel()
-                             + slab_k.numel()), 0)
+    t_bytes, by = k4_bound(asT, t_start_p, cap)
     rows.append(dict(
         name="slab_expansion", route="cuda",
         source="bloomscene_tpu_torch/csrc/expand.cu",
@@ -293,6 +345,7 @@ def forward_kernel_rows(res, intr, cfg, pcap):
         plain_ms=time_ms(lambda: expand_slab_plain(asT, t_start_p, cap), 20),
         bound_ms=t_bytes, bound_by=by,
         library_ms=time_ms(lambda: asT[:, idx], 20),
+        **ptxas_report(build.build_log("expand")),
         shapes={"asT": list(asT.shape), "slab": list(slab_k.shape)}))
 
     # K1: blend forward
@@ -648,15 +701,14 @@ def main() -> int:
     ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
                     if "Used" in ln or "spill" in ln]
              for name in build.KERNELS}
-    # the blend kernels keep their state in registers: a spill, or no
-    # report to show there is none, fails
-    spills = {name: ptxas_report(build.build_log(name))
-              ["spill_bytes"] for name in ("blend", "blend_bwd")}
+    # every kernel keeps its state in registers: a spill, or no report to
+    # show there is none, fails
+    spills = {name: ptxas_report(build.build_log(name))["spill_bytes"]
+              for name in build.KERNELS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "card": card, "ptxas": ptxas, "blend_spill_bytes": spills})
+          "card": card, "ptxas": ptxas, "spill_bytes": spills})
     if any(v != 0 for v in spills.values()):
-        failed.append("build (a blend kernel spills, or has no ptxas "
-                      "report)")
+        failed.append("build (a kernel spills, or has no ptxas report)")
 
     # 2. scene
     cfg = GSConfig(voxel_size=0.03)
@@ -753,7 +805,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_render", "launches_train", "block",
             "dynamic_smem_bytes", "static_smem_bytes", "registers",
-            "train_shape")
+            "spill_bytes", "train_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""What holds the blend kernels K1 (forward) and K2 (backward) back, on one
-card.
+"""What holds the kernels back, on one card: the blend kernels K1 (forward)
+and K2 (backward) and the binning kernels K3 (pair expansion) and K4 (slab
+expansion).
 
     python3 profile_blend.py
 
@@ -9,20 +10,27 @@ render shape) and trains the perturbed model two steps (the training
 shape, as ``chip_smoke.py`` phase 8), then prints one JSON object per
 line:
 
-1. ``build``: each kernel's block shape and ptxas report (registers,
-   shared memory, spills), its theoretical occupancy from those, and
-   the opcode histogram of its SASS (``cuobjdump -sass`` of the built
-   library), for the whole kernel and for each loop (a backward branch and
-   the instructions it closes).
+1. ``build``: each kernel's ptxas report (registers, shared memory,
+   spills) and the opcode histogram of its SASS (``cuobjdump -sass`` of
+   the built library), for the whole kernel and for each loop (a backward
+   branch and the instructions it closes); for K1 and K2 also the block
+   shape and the theoretical occupancy from those.
 2. ``work`` per kernel and shape, counted from the inputs with torch on the
    card: K1's pixel iterations (slots a pixel visits before it stops), its
    warp iterations (slots any of a warp's 32 or 64 pixels visits), blended
    steps and the steps above the kernels' exp-free skip threshold; K2's
    walked (pixel, slot) steps, the blended ones, the warp slots where no
    pixel of a 32- or 64-pixel warp blends, and the steps above the
-   threshold.
+   threshold; K3's ranks, live ranks (those owning a slot below the
+   total and the capacity), total pairs, slots past the total, the
+   binary-search depth over the starts and the ranks a chunk of 1024
+   slots touches; K4's slab size, the distinct asT columns it reads and
+   the positions whose start is clamped at width - cap.
 3. ``time``: CUDA events over 100 launches, with the SM clock and the
-   power draw sampled by nvidia-smi during the loop.
+   power draw sampled by nvidia-smi during the loop; K3 also with the
+   cull off (no atab), which isolates the cost of its float arithmetic,
+   and an empty launch (``torch.cuda._sleep(0)``), the floor of a timed
+   launch.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ SMEM_PER_SM = 233472            # 228 KB; a block may use 227 KB of it
 THREADS_PER_SM = 2048
 BLOCKS_PER_SM = 32
 REPS = 100                      # launches timed per kernel and shape
+CHUNK_SLOTS = 1024              # pair slots a chunk of K3 takes
 
 
 def emit(obj: dict) -> None:
@@ -165,9 +174,60 @@ def blend_work(slab, counts_p, tid, tile: int, gx: int, ncon=None) -> dict:
     return out
 
 
+@torch.no_grad()
+def pairs_work(args: dict) -> dict:
+    """K3's work on these inputs (its keyword arguments)."""
+    starts = args["starts_full"]
+    n = args["x0"].shape[0]
+    pcap = args["pair_capacity"]
+    total = int(starts[n])
+    live_slots = min(total, pcap)
+    live_ranks = int((starts[:n] < live_slots).sum())
+    touched = starts[1:] - starts[:n]
+    # the rank that owns each chunk's first and last slot (slots past the
+    # total belong to the last live rank)
+    first = torch.arange(0, pcap, CHUNK_SLOTS, device=starts.device)
+    last = torch.clamp(first + CHUNK_SLOTS, max=pcap) - 1
+    rank = [torch.clamp(torch.searchsorted(
+        starts[:n], torch.clamp(k, max=max(total - 1, 0)).int(),
+        right=True) - 1, min=0) for k in (first, last)]
+    span = rank[1] - rank[0] + 1
+    return {"n": n, "pair_capacity": pcap, "total_pairs": total,
+            "live_slots": live_slots,
+            "slots_past_total": max(pcap - total, 0),
+            "live_ranks": live_ranks,
+            "max_touched": int(touched.max()) if n else 0,
+            "slots_per_live_rank": live_slots / max(1, live_ranks),
+            "search_depth": (n + 1).bit_length(),
+            "packed_key": args["packed_key"],
+            "cull": args["atab"] is not None,
+            "chunks": len(first),
+            "live_chunks": int((first < total).sum()),
+            "ranks_per_live_chunk_max": int(span[first < total].max())
+            if total else 0,
+            "ranks_per_live_chunk_mean": float(span[first < total].double()
+                                               .mean()) if total else 0.0}
+
+
+@torch.no_grad()
+def slab_work(asT, t_start_p, cap: int) -> dict:
+    """K4's work on these inputs."""
+    from bloomscene_tpu_torch.ops.cuda.expand import slab_index
+    R, width = asT.shape
+    T = t_start_p.numel()
+    cols = int(torch.unique(slab_index(t_start_p, width, cap)).numel())
+    return {"rows": R, "width": width, "positions": T, "cap": cap,
+            "slab_bytes": 4 * R * cap * T,
+            "distinct_columns": cols,
+            "distinct_read_bytes": 4 * R * cols,
+            "clamped_positions": int((t_start_p > width - cap).sum())}
+
+
 def timed_with_clocks(fn) -> dict:
-    """CUDA-event ms per call over REPS calls, with nvidia-smi sampling the
-    SM clock and power draw every 20 ms meanwhile."""
+    """CUDA-event ms per call over REPS calls queued behind
+    ``chip_smoke.hold_device``, with nvidia-smi sampling the SM clock and
+    power draw every 20 ms meanwhile."""
+    import chip_smoke as cs
     fn()
     torch.cuda.synchronize()
     smi = subprocess.Popen(
@@ -176,6 +236,7 @@ def timed_with_clocks(fn) -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     try:
         time.sleep(0.1)
+        cs.hold_device(fn, REPS)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -205,6 +266,8 @@ def main() -> int:
     from bloomscene_tpu_torch.ops.cuda import build
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
                                                      blend_forward)
+    from bloomscene_tpu_torch.ops.cuda.expand import expand_slab
+    from bloomscene_tpu_torch.ops.cuda.pairs import expand_pairs
     from bloomscene_tpu_torch.ops.tiles import tile_grid
     from bloomscene_tpu_torch.pipeline.bloomscene import render_model
     from bloomscene_tpu_torch.train.loop import Trainer
@@ -243,6 +306,11 @@ def main() -> int:
                                                             views)
     bins_r = res_r.bins
     counts_r = bins_r.counts[bins_r.perm.long()].contiguous()
+    cap = cfg.max_splats_per_tile
+    binning = {"render": cs.binning_inputs(res_r, intr, cfg,
+                                           stats[0]["pair_capacity"]),
+               "train": cs.binning_inputs(res_t, intr, cfg_t,
+                                          res_t.bins.src_lane.numel())}
 
     # 1. build
     for name in ("blend", "blend_bwd"):
@@ -253,6 +321,10 @@ def main() -> int:
                           + shape["dynamic_smem_bytes"]),
               "blocks": len(counts_t),
               "sass": sass_histograms(str(build.library_path(name)))})
+    for name in ("pairs", "expand"):
+        emit({"phase": "build", "kernel": name,
+              **cs.ptxas_report(build.build_log(name)),
+              "sass": sass_histograms(str(build.library_path(name)))})
 
     # 2. work
     emit({"phase": "work", "kernel": "blend_forward", "shape": "render",
@@ -261,6 +333,11 @@ def main() -> int:
           "shape": "train",
           **blend_work(res_t.bins.slab, counts_t, res_t.bins.perm, tile, gx,
                        ncon)})
+    for shape, (args, asT, t_start_p) in binning.items():
+        emit({"phase": "work", "kernel": "pair_expansion", "shape": shape,
+              **pairs_work(args)})
+        emit({"phase": "work", "kernel": "slab_expansion", "shape": shape,
+              **slab_work(asT, t_start_p, cap)})
 
     # 3. time
     bt = res_t.bins
@@ -275,6 +352,18 @@ def main() -> int:
                *(x * scale for x in u))
     emit({"phase": "time", "kernel": "blend_backward", "shape": "train",
           "card": card, **timed_with_clocks(lambda: blend_backward(*k2_args))})
+    for shape, (args, asT, t_start_p) in binning.items():
+        emit({"phase": "time", "kernel": "pair_expansion", "shape": shape,
+              "card": card,
+              **timed_with_clocks(lambda: expand_pairs(**args))})
+        emit({"phase": "time", "kernel": "pair_expansion", "shape": shape,
+              "cull": False, "card": card, **timed_with_clocks(
+                  lambda: expand_pairs(**{**args, "atab": None}))})
+        emit({"phase": "time", "kernel": "slab_expansion", "shape": shape,
+              "card": card, **timed_with_clocks(
+                  lambda: expand_slab(asT, t_start_p, cap))})
+    emit({"phase": "time", "kernel": "empty launch", "card": card,
+          **timed_with_clocks(lambda: torch.cuda._sleep(0))})
     return 0
 
 

@@ -18,6 +18,9 @@ itself from one launch to the next.
 
 ``blend_case`` builds the edge cases' slabs; tests/test_torch_blend_edges.py
 holds the plain versions against the JAX package on the same cases.
+``pairs_case`` and ``slab_case`` build K3's and K4's edge cases: the
+edges of K3's blocks of 1024 slots and of its window of ranks, and of
+K4's blocks of 32 positions by 32 slots.
 """
 import numpy as np
 import pytest
@@ -87,6 +90,91 @@ def blend_case(case: str, tile: int, seed: int = 0):
         slab[7:10, :, p] = rng.uniform(0, 1, (3, cap))
     return (torch.from_numpy(slab), torch.tensor(counts, dtype=torch.int32),
             torch.from_numpy(tid))
+
+
+PAIRS_CASES = ('ragged_capacity', 'overflow', 'exact', 'empty', 'wide_rank',
+               'one_slot_runs', 'gaps')
+
+
+def pairs_case(case: str, packed_key: bool, cull: bool, seed: int = 0
+               ) -> dict:
+    """K3's keyword arguments for a synthetic rank table on a 64 x 64 grid
+    of 16-pixel tiles: random rectangles (1-8 tiles a side), ids a random
+    permutation, splats near their rectangles (some slots culled).
+
+    - ragged_capacity: a capacity that is no multiple of 1024, with dead
+      blocks past the total;
+    - overflow: total > capacity; exact: total == capacity;
+    - empty: no rank touches a tile (total 0, every slot dead, rank 0);
+    - wide_rank: one rank of 2,560 slots across three blocks;
+    - one_slot_runs: 3,000 ranks of one slot each, so a block's window
+      holds 1,024 ranks;
+    - gaps: one-slot ranks as above, every other touching nothing though
+      live ranks follow (no caller makes this): a block's 1,024 slots
+      span ~2,048 ranks, so slots past the window search beyond it."""
+    rng = np.random.default_rng(seed)
+    gx = gy = 64
+    n = 3000 if case in ('one_slot_runs', 'gaps') else 600
+    rw = rng.integers(1, 9, n)
+    rh = rng.integers(1, 9, n)
+    if case in ('one_slot_runs', 'gaps'):
+        rw[:] = rh[:] = 1
+    if case == 'wide_rank':
+        rw[5], rh[5] = gx, 40
+    x0 = rng.integers(0, gx - rw + 1)
+    y0 = rng.integers(0, gy - rh + 1)
+    touched = rw * rh
+    if case == 'empty':
+        touched[:] = 0
+    if case == 'gaps':
+        touched[1::2] = 0
+    starts = np.concatenate([[0], np.cumsum(touched)]).astype(np.int32)
+    total = int(starts[-1])
+    capacity = {'ragged_capacity': total + 2500, 'overflow': total - 777,
+                'exact': total, 'empty': 2000, 'wide_rank': total + 300,
+                'one_slot_runs': total + 100, 'gaps': total + 50}[case]
+    if case == 'ragged_capacity' and capacity % 1024 == 0:
+        capacity += 1
+    tile = 16
+    # conics of splats with axes 2-40 pixels, centres near the rectangle
+    sig = rng.uniform(2.0, 40.0, (n, 2))
+    th = rng.uniform(0, np.pi, n)
+    c, s_ = np.cos(th), np.sin(th)
+    ia, ib = 1 / sig[:, 0] ** 2, 1 / sig[:, 1] ** 2
+    atab = np.stack([
+        (x0 + rw * rng.uniform(-0.2, 1.2, n)) * tile,
+        (y0 + rh * rng.uniform(-0.2, 1.2, n)) * tile,
+        c * c * ia + s_ * s_ * ib, c * s_ * (ia - ib), s_ * s_ * ia + c * c * ib,
+        np.log(255.0 * rng.uniform(0.02, 1.0, n))]).astype(np.float32)
+    kbits = max(1, capacity - 1).bit_length()
+    num_tiles = gx * gy
+    assert not packed_key or (num_tiles + 1) < (1 << (31 - kbits))
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+    return dict(starts_full=i32(starts), x0=i32(x0), y0=i32(y0),
+                w=i32(rw), order=i32(rng.permutation(n)),
+                atab=torch.from_numpy(atab) if cull else None,
+                pair_capacity=capacity, gx=gx, tile=tile, kbits=kbits,
+                num_tiles=num_tiles, packed_key=packed_key)
+
+
+# (positions T, cap): T = 15 is an 80 x 48 image at tile 16
+SLAB_CASES = {'T15_cap24': (15, 24), 'T15_cap40': (15, 40),
+              'T70_cap1024': (70, 1024), 'T1024_cap40': (1024, 40)}
+
+
+def slab_case(case: str, seed: int = 0):
+    """K4's inputs (asT [10, 300 + cap], t_start_p [T], cap), a quarter
+    of the starts past width - cap, so the kernel clamps them."""
+    T, cap = SLAB_CASES[case]
+    rng = np.random.default_rng(seed)
+    width = 300 + cap
+    asT = rng.normal(size=(10, width)).astype(np.float32)
+    starts = rng.integers(0, width - cap + 1, T)
+    starts[::4] = rng.integers(width - cap + 1, width + 1, len(starts[::4]))
+    return (torch.from_numpy(asT),
+            torch.from_numpy(starts.astype(np.int32)), cap)
 
 
 def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
@@ -244,3 +332,46 @@ def test_blend_kernels_edge_cases(case, tile):
     assert bool((got[:, past] == 0).all())
     if int(walk.sum()):
         assert float(want.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cull', [True, False], ids=['cull', 'no_cull'])
+@pytest.mark.parametrize('packed_key', [True, False],
+                         ids=['packed', 'two_key'])
+@pytest.mark.parametrize('case', PAIRS_CASES)
+def test_pair_kernel_edge_cases(case, packed_key, cull):
+    """K3 bitwise against its plain version at the edges of its blocks
+    and windows, in both key forms, with the cull on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from bloomscene_tpu_torch.ops.cuda.pairs import (expand_pairs,
+                                                     expand_pairs_plain)
+    args = pairs_case(case, packed_key, cull)
+    total = int(args['starts_full'][-1])
+    cap = args['pair_capacity']
+    assert {'overflow': total > cap, 'exact': total == cap,
+            'empty': total == 0}.get(case, total < cap)
+    want = expand_pairs_plain(**args)
+    dev = torch.device('cuda')
+    got = expand_pairs(**{k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                          for k, v in args.items()})
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(SLAB_CASES))
+def test_slab_kernel_edge_cases(case):
+    """K4 bitwise against its plain version with T and cap no multiples
+    of its block's 32 positions and 32 slots, and clamped starts."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from bloomscene_tpu_torch.ops.cuda.expand import (expand_slab,
+                                                      expand_slab_plain)
+    asT, starts, cap = slab_case(case)
+    assert int((starts > asT.shape[1] - cap).sum()) > 0
+    want = expand_slab_plain(asT, starts, cap)
+    got = expand_slab(asT.cuda(), starts.cuda(), cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)

@@ -150,11 +150,32 @@ def test_empty_scene_bins():
     assert int(tb.num_pairs) == 0 and tb.gauss_sorted.shape == (512,)
 
 
-def _pairs_per_slot(starts_full, x0, y0, w, order, atab, pair_capacity, gx,
-                    tile, kbits, num_tiles, packed_key):
-    """The CUDA kernel's per-slot algorithm (csrc/pairs.cu), slot by slot in
-    numpy: binary search for the rank, integer division for the tile, the
-    cull in float32."""
+def _warp_count_le(s, n, v):
+    """How many of s[:n] are <= v, by the kernel's warp search: 32 probes
+    a round (one a lane), the ballot's count narrowing the interval
+    32-fold."""
+    lo, hi = 0, n
+    while lo < hi:
+        step = -(-(hi - lo) // 32)
+        p = lo + (np.arange(32) + 1) * step - 1
+        cnt = int(np.sum((p < hi) & (s[np.minimum(p, n - 1)] <= v)))
+        lo, hi = lo + cnt * step, min(hi, lo + (cnt + 1) * step - 1)
+    return lo
+
+
+def _pairs_by_blocks(starts_full, x0, y0, w, order, atab, pair_capacity, gx,
+                     tile, kbits, num_tiles, packed_key, block=1024,
+                     per_thread=4, window=1024):
+    """The CUDA kernel's chunk algorithm (csrc/pairs.cu) in numpy: per
+    chunk of ``block`` slots, the ranks owning its first and last slot by
+    the warp search (the last live rank for slots past the total); a chunk
+    at or past the total writes the dead key and the last live rank's id;
+    otherwise the ranks between are staged (at most ``window`` of them,
+    the next rank's start as lookahead), each thread of ``per_thread``
+    consecutive slots searches the window for its first slot's rank and
+    walks forward for the rest, slots past the window search the starts
+    beyond it; then the integer division for the tile and the cull in
+    float32. Which block takes which chunk does not change the output."""
     f32 = np.float32
     s = starts_full.numpy()
     n = x0.shape[0]
@@ -162,9 +183,11 @@ def _pairs_per_slot(starts_full, x0, y0, w, order, atab, pair_capacity, gx,
     a = atab.numpy()
     key = np.zeros(pair_capacity, np.int64)
     gid = np.zeros(pair_capacity, np.int64)
-    for k in range(pair_capacity):
-        r = max(int(np.searchsorted(s[:n], min(k, total - 1), 'right')) - 1,
-                0)
+
+    def rank_of(v):
+        return max(_warp_count_le(s, n, v) - 1, 0)
+
+    def emit(k, r):
         local = k - int(s[r])
         q, rem = divmod(local, int(w[r]))
         tx, ty = int(x0[r]) + rem, int(y0[r]) + q
@@ -189,19 +212,63 @@ def _pairs_per_slot(starts_full, x0, y0, w, order, atab, pair_capacity, gx,
         t = ty * gx + tx if live else num_tiles
         key[k] = (t << kbits) | k if packed_key else t
         gid[k] = order[r]
+
+    for k0 in range(0, pair_capacity, block):
+        k_end = min(k0 + block, pair_capacity)
+        r_last = rank_of(min(k_end - 1, total - 1))
+        if k0 >= total:
+            for k in range(k0, k_end):
+                key[k] = (num_tiles << kbits) | k if packed_key else num_tiles
+                gid[k] = order[r_last]
+            continue
+        r_first = rank_of(k0)
+        m = r_last - r_first + 1
+        win = s[r_first:r_first + min(m, window)]
+        ahead = s[r_first + window] if m > window else np.iinfo(np.int64).max
+        for kt in range(k0, k_end, per_thread):
+            i = None
+            for k in range(kt, min(kt + per_thread, k_end)):
+                v = min(k, total - 1)
+                if v < ahead:
+                    if i is None:
+                        i = int(np.searchsorted(win, v, 'right')) - 1
+                    while i + 1 < len(win) and win[i + 1] <= v:
+                        i += 1
+                    r = r_first + i
+                else:
+                    beyond = s[r_first + window:r_last + 1]
+                    r = (r_first + window
+                         + int(np.searchsorted(beyond, v, 'right')) - 1)
+                emit(k, r)
     return key, gid
 
 
-@pytest.mark.parametrize('pair_capacity', [1024, 700])
-def test_pair_kernel_algorithm_matches_plain(rng, pair_capacity):
-    """The kernel's rank search / integer division equal the plain
-    version's marker + running max / float reciprocal, slot for slot,
-    including slots past the total and truncation at the capacity."""
+@pytest.mark.parametrize('pair_capacity,block,window', [
+    pytest.param(1024, 1024, 1024, id='1024'),
+    pytest.param(700, 1024, 1024, id='700'),
+    pytest.param(700, 4, 4, id='700-block4'),
+    pytest.param(700, 16, 2, id='700-window2')])
+def test_pair_kernel_algorithm_matches_plain(rng, pair_capacity, block,
+                                             window):
+    """The kernel's block algorithm (warp search per block, the staged
+    window of ranks, the per-thread walk, integer division) equals the
+    plain version's marker + running max / float reciprocal, slot for
+    slot, including slots past the total, truncation at the capacity,
+    ranks wider than a block (a one-rank window) or straddling two, and
+    windows too small for their block's ranks."""
     _, pt, _, op = scene(rng, 80)
     args = pair_kernel_inputs(pt, W, H, TILE, pair_capacity,
                               torch.from_numpy(op))
     key, gid = expand_pairs_plain(**args)
-    want_key, want_gid = _pairs_per_slot(**args)
-    assert int(args['starts_full'][-1]) != pair_capacity
+    want_key, want_gid = _pairs_by_blocks(**args, block=block,
+                                          per_thread=min(4, block),
+                                          window=window)
+    starts = args['starts_full']
+    total = int(starts[-1])
+    assert total != pair_capacity
+    if block == window < 1024:      # a rank wider than a block
+        assert int((starts[1:] - starts[:-1]).max()) > block
+    if window < block:              # more ranks a block than the window
+        assert int((starts[:-1] < total).sum()) * block > total * window
     np.testing.assert_array_equal(key.numpy(), want_key)
     np.testing.assert_array_equal(gid.numpy(), want_gid)
