@@ -2,16 +2,11 @@
 
 The port of ``bloomscene_tpu/examples/fit_single_view.py``: the same scene
 (a sphere-shell point cloud and a two-color disk target), the same
-``GSConfig``, and the same check, that the eval render's mean L1 error
-drops. Training is phase 0 throughout (noise and context from 10**9).
-
-The default ``--steps`` is 90, not the JAX demo's 300: the first
-densification step would come at step 100, and ``adjust_anchor`` is not
-ported yet (``Trainer.run`` refuses a run that reaches it). It goes back
-to 300 when ``adjust_anchor`` lands.
+``GSConfig`` (densification on, noise and context from 10**9) and the same
+check, that the eval render's mean L1 error drops.
 
     python -m bloomscene_tpu_torch.examples.fit_single_view \\
-        --steps 90 --out outputs/fit_single_view
+        --steps 300 --out outputs/fit_single_view [--color_mode sh]
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
 """
@@ -20,6 +15,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -45,9 +41,10 @@ def build_scene(n_points: int = 1500, seed: int = 0, res: int = 128):
     return pts, cam, img, depth
 
 
-def fit(steps: int = 90, res: int = 128, seed: int = 0,
+def fit(steps: int = 300, res: int = 128, seed: int = 0,
         device: str = "cuda", out: str | None = None,
-        log_every: int = 25, n_points: int = 1500) -> dict:
+        log_every: int = 25, n_points: int = 1500,
+        color_mode: str = 'mlp', sh_degree: int = 1) -> dict:
     """Train ``steps`` steps on a shell of ``n_points`` points; returns the
     loss curve's ends and the L1 errors of the eval render before and
     after. Writes before/after images (``.npy``) and the loss curve to
@@ -64,7 +61,8 @@ def fit(steps: int = 90, res: int = 128, seed: int = 0,
                    max_splats_per_tile=2048,
                    start_stat=10, update_from=50, update_interval=100,
                    update_until=max(60, steps - 20),
-                   noise_from_step=10 ** 9, context_from_step=10 ** 9)
+                   noise_from_step=10 ** 9, context_from_step=10 ** 9,
+                   color_mode=color_mode, sh_degree=sh_degree)
     model, voxel_size = init_model(seed, pts, cfg, device=str(dev))
     arrs = cam.device_arrays(dev)
     views = [(arrs, torch.as_tensor(img, device=dev),
@@ -76,6 +74,7 @@ def fit(steps: int = 90, res: int = 128, seed: int = 0,
         return np.clip(res_r.out.color.cpu().numpy(), 0, 1)
 
     before = snapshot(model)
+    t0 = time.perf_counter()
     trainer = Trainer(model, cfg, cam.intrinsics, voxel_size, seed=seed,
                       device=str(dev))
     model = trainer.run(views, log_every=log_every,
@@ -83,9 +82,11 @@ def fit(steps: int = 90, res: int = 128, seed: int = 0,
                             f"step {rec['iteration']:4d} "
                             f"loss {rec['loss']:.4f} "
                             f"psnr {rec['psnr']:.2f}", flush=True))
+    train_s = time.perf_counter() - t0
     after = snapshot(model)
     hist = trainer.history
-    result = {'steps': steps, 'loss_first': hist[0]['loss'],
+    result = {'steps': steps, 'train_s': train_s,
+              'loss_first': hist[0]['loss'],
               'loss_last': hist[-1]['loss'],
               'l1_before': float(np.mean(np.abs(before - img))),
               'l1_after': float(np.mean(np.abs(after - img)))}
@@ -100,13 +101,17 @@ def fit(steps: int = 90, res: int = 128, seed: int = 0,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--steps', type=int, default=90)
+    ap.add_argument('--steps', type=int, default=300)
     ap.add_argument('--res', type=int, default=128)
     ap.add_argument('--out', type=str, default='outputs/fit_single_view')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--device', type=str, default='cuda')
+    ap.add_argument('--color_mode', type=str, default='mlp',
+                    choices=('mlp', 'sh'))
+    ap.add_argument('--sh_degree', type=int, default=1)
     args = ap.parse_args()
-    result = fit(args.steps, args.res, args.seed, args.device, args.out)
+    result = fit(args.steps, args.res, args.seed, args.device, args.out,
+                 color_mode=args.color_mode, sh_degree=args.sh_degree)
     print(json.dumps({**result, 'out': args.out}))
     if not result['l1_after'] < result['l1_before']:
         raise SystemExit("training did not improve the render")

@@ -40,13 +40,17 @@ class AnchorState:
 
     def __init__(self, anchor, offset, mask_logit, feat, scaling_log,
                  rotation, opacity_raw, alive):
-        self._anchor = anchor.reshape(-1)
-        self._offset = offset.reshape(-1)
-        self._mask_logit = mask_logit.reshape(-1)
-        self._feat = feat.reshape(-1)
-        self._scaling_log = scaling_log.reshape(-1)
-        self._rotation = rotation.reshape(-1)
-        self._opacity_raw = opacity_raw.reshape(-1)
+        def flat(x):
+            # a flat leaf is kept as the same tensor: ``_replace`` must not
+            # swap a trained leaf for a view of it
+            return x if x.dim() == 1 else x.reshape(-1)
+        self._anchor = flat(anchor)
+        self._offset = flat(offset)
+        self._mask_logit = flat(mask_logit)
+        self._feat = flat(feat)
+        self._scaling_log = flat(scaling_log)
+        self._rotation = flat(rotation)
+        self._opacity_raw = flat(opacity_raw)
         self._alive = alive
 
     def flat_leaves(self) -> dict:
@@ -119,6 +123,28 @@ class AnchorState:
     def num_alive(self) -> int:
         return int(self._alive.sum())
 
+    @torch.no_grad()
+    def write_rows(self, slots: torch.Tensor, rows: dict) -> None:
+        """Write ``rows[field]`` (one row per slot) into those ``slots`` of
+        the flat float leaves, in place (the trainer's leaves stay the
+        tensors its optimizer holds)."""
+        C = self.capacity
+        for f, v in rows.items():
+            leaf = getattr(self, '_' + f).view(C, -1)
+            leaf.index_copy_(0, slots, v.reshape(slots.shape[0], -1).to(
+                leaf.dtype))
+
+    def grow(self, new_capacity: int) -> "AnchorState":
+        """The state zero-padded to ``new_capacity`` anchors (new rows dead):
+        new leaf tensors, which require grad where the old ones did."""
+        pad = new_capacity - self.capacity
+        vals = {}
+        for f, v in self.flat_leaves().items():
+            k = v.numel() // self.capacity
+            grown = torch.cat([v.detach(), v.new_zeros(pad * k)])
+            vals[f] = grown.requires_grad_(v.requires_grad)
+        return AnchorState(**vals)
+
     def gather_rows(self, idx: torch.Tensor, alive: torch.Tensor
                     ) -> "AnchorState":
         """Row-gather every per-anchor field by ``idx``; ``alive`` becomes
@@ -140,9 +166,10 @@ class AnchorBounds(NamedTuple):
                             x_max=torch.ones((1, 3), device=device))
 
 
+@torch.no_grad()
 def update_anchor_bounds(state: AnchorState) -> AnchorBounds:
     """AABB over alive anchors with the 1.2/0.8 margin rule
-    (gaussian_model.py:401-411)."""
+    (gaussian_model.py:401-411); constants of the model, without grad."""
     big = 1e9
     alive = state.alive[:, None]
     x_min = torch.where(alive, state.anchor, big).amin(0, keepdim=True)

@@ -43,7 +43,7 @@ def init_model(seed: int, points: np.ndarray, cfg: GSConfig,
     model = Model(
         state=state,
         heads=Heads(cfg.feat_dim, cfg.n_offsets, spec.output_dim, gen, dev,
-                    cfg.use_feat_bank, cfg.color_mode),
+                    cfg.use_feat_bank, cfg.color_mode, cfg.sh_degree),
         grid=hashgrid.init_mix_params(spec, gen, dev),
         bounds=AnchorBounds.initial(dev))
     return model, voxel_size

@@ -19,8 +19,8 @@ from ..ops.tile_rasterizer import rasterize_tiles
 from ..ops.tiles import TileBins, compute_tile_rects
 from ..scene.cameras import CameraArrays, Intrinsics
 from .anchors import get_scaling
-from .decode import (DecodedGaussians, RateInfo, attribute_means,
-                     decode_neural_gaussians, phase0_rate)
+from .decode import (DecodedGaussians, DecodeNoise, RateInfo,
+                     attribute_means, decode_neural_gaussians)
 from .model import Model
 
 
@@ -80,8 +80,8 @@ def count_pairs(model: Model, intr: Intrinsics, cam: CameraArrays,
             and model.state.capacity > visible_capacity):
         model, _ = compact_visible(model, visible, visible_capacity)
         visible = None
-    dec = decode_neural_gaussians(model, cam.camera_center, cfg, mode=mode,
-                                  visible=visible)
+    dec, _ = decode_neural_gaussians(model, cam.camera_center, cfg,
+                                     mode=mode, visible=visible)
     proj = _project(dec.xyz, dec.scaling, dec.rotation, intr, cam)
     proj = proj._replace(valid=proj.valid & dec.valid)
     opac_eff = torch.where(proj.valid, dec.opacity, 0.0)
@@ -95,6 +95,7 @@ def render(model: Model, intr: Intrinsics, cam: CameraArrays,
            bg: torch.Tensor | None = None,
            visible: torch.Tensor | None = None,
            mean2d_offset: torch.Tensor | None = None,
+           noise: DecodeNoise | None = None,
            tile_capacity: int | None = None,
            visible_capacity: int | None = None,
            pair_capacity: int | None = None,
@@ -105,15 +106,17 @@ def render(model: Model, intr: Intrinsics, cam: CameraArrays,
 
     ``mean2d_offset`` is a flat zero [n_child * 2] tensor added to the
     projected means: its gradient is dL/dmean2d in pixels, the densify
-    statistic (render.py:104-108, 160-162)."""
+    statistic (render.py:104-108, 160-162). ``noise`` is the decode's
+    draws in training phases 1 and 2, over the rows it decodes (the
+    visible bucket when the render compacts)."""
     with torch.set_grad_enabled(mode == 'train' and torch.is_grad_enabled()):
         return _render(model, intr, cam, cfg, phase, mode, bg, visible,
-                       mean2d_offset, tile_capacity, visible_capacity,
+                       mean2d_offset, noise, tile_capacity, visible_capacity,
                        pair_capacity, packed_capacity)
 
 
 def _render(model, intr, cam, cfg, phase, mode, bg, visible, mean2d_offset,
-            tile_capacity, visible_capacity, pair_capacity,
+            noise, tile_capacity, visible_capacity, pair_capacity,
             packed_capacity) -> RenderResult:
     dev = model.state.device
     if bg is None:
@@ -123,17 +126,16 @@ def _render(model, intr, cam, cfg, phase, mode, bg, visible, mean2d_offset,
     visible_idx = attr_means = None
     if (visible_capacity is not None and visible is not None
             and model.state.capacity > visible_capacity):
-        if mode == 'eval':
+        if mode == 'eval' or phase == 2:
             # quantization centers come from the FULL state, so the render
             # does not depend on the compaction
             attr_means = attribute_means(model.state)
         model, visible_idx = compact_visible(model, visible,
                                              visible_capacity)
         visible = None
-    dec = decode_neural_gaussians(model, cam.camera_center, cfg,
-                                  phase=phase, mode=mode, visible=visible,
-                                  attr_means=attr_means)
-    rate = phase0_rate(model.state, visible) if mode == 'train' else None
+    dec, rate = decode_neural_gaussians(
+        model, cam.camera_center, cfg, phase=phase, mode=mode,
+        visible=visible, noise=noise, attr_means=attr_means)
     proj = _project(dec.xyz, dec.scaling, dec.rotation, intr, cam)
     if mean2d_offset is not None:
         proj = proj._replace(mean2d=proj.mean2d

@@ -1,4 +1,4 @@
-"""Multi-resolution hash-grid encoder (HAC variant), forward.
+"""Multi-resolution hash-grid encoder (HAC variant), differentiable.
 
 The conventions of the reference gridencoder (gridencoder.cu:100-360) as
 the JAX package implements them:
@@ -14,7 +14,11 @@ the JAX package implements them:
 
 The hash multiplies and XORs in uint32 with wraparound. torch has no
 uint32 arithmetic, so the index is formed in int64 and masked to 32 bits
-after every multiply, before the modulo.
+after every multiply, before the modulo. Autograd carries the gradient
+into the tables (through the sign's straight-through rule and the corner
+gathers' scatter-add) and into ``x`` (through the corner weights), as JAX
+autodiff does; on the card the scatter-adds are atomic, so their sums are
+not bitwise and not in a fixed order.
 """
 from __future__ import annotations
 
@@ -129,7 +133,11 @@ def grid_encode(params: torch.Tensor, x: torch.Tensor,
             on_ring = torch.any((coords == 0) | (coords == R - 1), dim=-1)
             idx = _corner_index(torch.clamp(coords, 0, R - 1), R,
                                 table_size, spec.num_dim)
-            vals = table[idx]                                  # [N, F]
+            # index_select, not table[idx]: its backward is index_add_
+            # (atomic adds on the card), where indexing's backward on the
+            # card serializes repeated indices, and every dead anchor (at
+            # the origin) shares one cell
+            vals = table.index_select(0, idx)                  # [N, F]
             wv = torch.where(on_ring, 0.0, w)
             acc = acc + wv[:, None] * vals
             wn = wn + wv[:, None]

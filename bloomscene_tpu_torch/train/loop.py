@@ -1,17 +1,19 @@
 """One training step of the anchor model, and the host-side training loop.
 
-The port of ``bloomscene_tpu/train/loop.py`` for phase 0 (the reference hot
-loop, bloomscene.py:222-361): per step, the anchor prefilter, the neural
-render through the tile rasterizer's custom backward (K1 forward, K2
-backward), the loss stack (L1 + DSSIM + scaling regularizer + rate + the
+The port of ``bloomscene_tpu/train/loop.py`` (the reference hot loop,
+bloomscene.py:222-361): per step, the anchor prefilter, the neural render
+through the tile rasterizer's custom backward (K1 forward, K2 backward),
+the loss stack (L1 + DSSIM + scaling regularizer + the entropy rate + the
 optional depth-prior regularizers), the gradients, the non-finite update
-skip, the 13-group Adam and the densification statistics.
+skip, the 13-group Adam and the densification statistics. The decode
+follows the phase schedule (0: raw attributes, 1: quantization noise, 2:
+the hash-grid context, adaptive noise and the rate), and every
+``update_interval`` steps ``Trainer.run`` runs the anchor surgery
+(``models/densify.py::adjust_anchor``) at the JAX trainer's cadence.
 
-Not ported yet (each a ROADMAP queue 1 item): ``adjust_anchor`` (the
-densification surgery), phases 1 and 2 (quantization noise, the rate
-loss), ``make_train_scan`` (a device loop) and ``make_dp_train_step``
-(data parallelism). ``Trainer.run`` raises ``NotImplementedError`` before
-it would reach any of them.
+Not ported yet (ROADMAP queue 1): ``make_train_scan`` (a device loop),
+``make_dp_train_step`` (data parallelism) and the trainer's checkpoint
+save/restore.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from ..config import GSConfig
 from ..device import resolve_device
 from ..models import densify
 from ..models.anchors import update_anchor_bounds
+from ..models.decode import DecodeNoise, draw_noise
 from ..models.densify import DensifyStats
 from ..models.model import Model
 from ..models.render import prefilter_anchors, render
@@ -93,43 +96,53 @@ def compute_losses(res, gt_image, gt_depth, cfg: GSConfig):
 
 
 def make_train_step(cfg: GSConfig, intr: Intrinsics, optimizer: Adam,
-                    bg: torch.Tensor):
-    """step(model, stats, cam, gt_image, gt_depth, *, phase, track_stats)
-    -> (model, stats, StepMetrics); the model's leaves and the optimizer's
-    moments are updated in place."""
+                    bg: torch.Tensor,
+                    generator: torch.Generator | None = None):
+    """step(model, stats, cam, gt_image, gt_depth, *, phase, track_stats,
+    noise=None) -> (model, stats, StepMetrics); the model's leaves and the
+    optimizer's moments are updated in place. In phases 1 and 2 the
+    decode's draws come from ``noise`` when given, else from
+    ``generator``."""
 
     def train_step(model: Model, stats: DensifyStats, cam: CameraArrays,
-                   gt_image, gt_depth, *, phase: int, track_stats: bool):
+                   gt_image, gt_depth, *, phase: int, track_stats: bool,
+                   noise: DecodeNoise | None = None):
+        if noise is None and phase > 0:
+            noise = draw_noise(decoded_rows(model, cfg), cfg, phase,
+                               generator, model.state.device)
         return _step_core(cfg, intr, optimizer, bg, model, stats, cam,
-                          gt_image, gt_depth, phase, track_stats)
+                          gt_image, gt_depth, phase, track_stats, noise)
 
     return train_step
 
 
-def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
-               model: Model, stats: DensifyStats, cam: CameraArrays,
-               gt_image, gt_depth, phase: int, track_stats: bool):
-    """One SGD step (``_step_core``, loop.py:100-168). Its parts run under
-    ``record_function`` spans (``train.prefilter``, ``train.forward``,
-    ``train.backward``, ``train.update``, ``train.stats``) that a
-    ``torch.profiler`` run reads (``profile_render_torch.py --train``)."""
-    if phase != 0:
-        raise NotImplementedError(
-            f"training phase {phase}: the port trains phase 0 only "
-            "(phases 1/2: ROADMAP queue 1)")
+def decoded_rows(model: Model, cfg: GSConfig) -> int:
+    """The anchor rows a training render decodes: the capacity, or the
+    visible bucket when ``cfg.visible_capacity`` compacts the decode."""
+    n = model.state.capacity
+    if cfg.visible_capacity is not None and n > cfg.visible_capacity:
+        n = cfg.visible_capacity
+    return n
+
+
+def step_gradients(cfg: GSConfig, intr: Intrinsics, bg, model: Model,
+                   params: list, cam: CameraArrays, gt_image, gt_depth,
+                   phase: int, noise: DecodeNoise | None = None):
+    """The forward and backward of one step -> (visible, loss, aux, res,
+    grads, g_m2d): the gradient of the loss for each tensor of ``params``
+    (zeros where the loss does not reach it) and for the mean2d offset.
+    With ``cfg.remat`` the decode and render are recomputed in the backward
+    (``noise`` is drawn before, so the recomputation sees the same
+    draws)."""
     with record_function("train.prefilter"):
         visible = prefilter_anchors(model, intr, cam)
-    n_anch = model.state.capacity
-    if (cfg.visible_capacity is not None
-            and n_anch > cfg.visible_capacity):
-        n_anch = cfg.visible_capacity
-    n_child = n_anch * model.state.n_offsets
+    n_child = decoded_rows(model, cfg) * model.state.n_offsets
     m2d_offset = torch.zeros((n_child * 2,), device=visible.device,
                              requires_grad=True)
 
     def render_fn(m2d):
         return render(model, intr, cam, cfg, phase=phase, mode='train',
-                      bg=bg, visible=visible, mean2d_offset=m2d)
+                      bg=bg, visible=visible, mean2d_offset=m2d, noise=noise)
 
     with torch.enable_grad():
         with record_function("train.forward"):
@@ -140,13 +153,26 @@ def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
             else:
                 res = render_fn(m2d_offset)
             loss, aux = compute_losses(res, gt_image, gt_depth, cfg)
-        params = [t for _, _, t in optimizer.params]
         with record_function("train.backward"):
             grads = torch.autograd.grad(loss, params + [m2d_offset],
                                         allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(params + [m2d_offset], grads)]
     g_m2d = grads.pop()
+    return visible, loss, aux, res, grads, g_m2d
+
+
+def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
+               model: Model, stats: DensifyStats, cam: CameraArrays,
+               gt_image, gt_depth, phase: int, track_stats: bool,
+               noise: DecodeNoise | None = None):
+    """One SGD step (``_step_core``, loop.py:100-168). Its parts run under
+    ``record_function`` spans (``train.prefilter``, ``train.forward``,
+    ``train.backward``, ``train.update``, ``train.stats``) that a
+    ``torch.profiler`` run reads (``profile_render_torch.py --train``)."""
+    params = [t for _, _, t in optimizer.params]
+    visible, loss, aux, res, grads, g_m2d = step_gradients(
+        cfg, intr, bg, model, params, cam, gt_image, gt_depth, phase, noise)
 
     # a non-finite loss or gradient would poison every parameter through
     # Adam in one step: zero the gradients and still step (loop.py:136-147)
@@ -168,7 +194,8 @@ def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
         loss_dep_value=aux['loss_dep_value'].detach(),
         loss_dep_domin=aux['loss_dep_domin'].detach(),
         loss_dep_smooth=aux['loss_dep_smooth'].detach(),
-        bit_per_param=res.rate.bit_per_param, psnr=aux['psnr'].detach(),
+        bit_per_param=res.rate.bit_per_param.detach(),
+        psnr=aux['psnr'].detach(),
         n_visible_anchors=torch.sum(visible),
         tile_overflow=res.bins.tile_overflow,
         pair_overflow=res.bins.pair_overflow,
@@ -180,7 +207,8 @@ def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
 
 class Trainer:
     """Host-side orchestration of the optimization (loop.py:333-508), on one
-    device. The model's leaves are trained in place."""
+    device. The model's leaves are trained in place, until a densification
+    step grows the capacity and replaces them."""
 
     def __init__(self, model: Model, cfg: GSConfig, intr: Intrinsics,
                  voxel_size: float, spatial_lr_scale: float = 1.0,
@@ -202,25 +230,18 @@ class Trainer:
             bg if bg is not None else
             (np.ones(3) if cfg.white_background else np.zeros(3)),
             dtype=torch.float32, device=dev)
-        self.step_fn = make_train_step(cfg, intr, self.optimizer, self.bg)
+        # the decode's noise in phases 1 and 2, drawn on the device
+        self.noise_gen = torch.Generator(device=dev).manual_seed(seed)
+        self.step_fn = make_train_step(cfg, intr, self.optimizer, self.bg,
+                                       self.noise_gen)
         # camera draws: numpy, not the JAX package's key splits, so the
         # draw sequence differs from JAX's for more than one camera
         self.rng = np.random.default_rng(seed)
+        # the surgery's draws: a numpy Generator of its own, as the JAX
+        # trainer's np_rng
+        self.densify_rng = np.random.default_rng(seed)
         self.history: list[dict] = []
         self.step = 0
-
-    def _check_supported(self, first: int, last: int) -> None:
-        cfg = self.cfg
-        for it in range(first, last + 1):
-            if phase_of_step(it, cfg) > 0:
-                raise NotImplementedError(
-                    f"step {it} is in training phase "
-                    f"{phase_of_step(it, cfg)}: the port trains phase 0 "
-                    "only (phases 1/2: ROADMAP queue 1)")
-            if self._densify_due(it):
-                raise NotImplementedError(
-                    f"step {it} is a densification step: adjust_anchor is "
-                    "not ported yet (models/densify.py: ROADMAP queue 1)")
 
     def _densify_due(self, it: int) -> bool:
         cfg = self.cfg
@@ -233,11 +254,11 @@ class Trainer:
             log_every: int = 100, callback=None) -> Model:
         """cameras: list of (CameraArrays, gt_image [H, W, 3], gt_depth
         [H, W]) on the trainer's device. Resumes from ``self.step + 1``.
-        Raises ``NotImplementedError`` up front when the run would reach a
-        phase above 0 or a densification step."""
+        A record (every ``log_every`` steps and the last) carries the
+        step's metrics, and ``densify_*`` keys when ``adjust_anchor`` ran
+        on that step."""
         cfg = self.cfg
         iterations = iterations or cfg.iterations
-        self._check_supported(self.step + 1, iterations)
         for it in range(self.step + 1, iterations + 1):
             self.step = it
             cam, gt_image, gt_depth = cameras[int(
@@ -249,11 +270,16 @@ class Trainer:
             self.model, self.stats, metrics = self.step_fn(
                 self.model, self.stats, cam, gt_image, gt_depth,
                 phase=phase_of_step(it, cfg), track_stats=track)
+            info = None
+            if self._densify_due(it):
+                self.model, self.stats, info = densify.adjust_anchor(
+                    self.model, self.stats, self.optimizer, cfg,
+                    self.voxel_size, self.densify_rng)
             if it % log_every == 0 or it == iterations:
-                self._emit_record(it, metrics._asdict(), callback)
+                self._emit_record(it, metrics._asdict(), info, callback)
         return self.model
 
-    def _emit_record(self, it, metric_items, callback):
+    def _emit_record(self, it, metric_items, info, callback):
         cfg = self.cfg
         rec = {k: float(v) for k, v in metric_items.items()}
         rec['iteration'] = it
@@ -281,6 +307,9 @@ class Trainer:
                 "passed to rasterize_tiles (defaults to pair_capacity, "
                 "which never overflows this buffer)",
                 RuntimeWarning, stacklevel=2)
+        if info:
+            rec.update({f'densify_{k}': v for k, v in info.items()
+                        if not isinstance(v, bool)})
         self.history.append(rec)
         if callback:
             callback(rec)

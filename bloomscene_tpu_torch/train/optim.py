@@ -17,9 +17,12 @@ taken from ``torch.optim.Adam``, so that it follows optax step for step:
 ``rotation``, ``opacity_raw``, ``alive`` and the anchor bounds are the
 ``FROZEN`` group: never updated, as the reference's requires_grad_(False)
 parameters (:477-478). Parameters and moments are updated in place.
+Densification's ``anchor_surgery`` zeroes the moments of changed anchor
+slots and pads them when the capacity grows (densify.py:315-352).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import GSConfig
@@ -31,6 +34,9 @@ B1, B2, EPS = 0.9, 0.999, 1e-15
 STATE_GROUPS = {'anchor': 'anchor', 'offset': 'offset', 'mask_logit': 'mask',
                 'feat': 'anchor_feat', 'scaling_log': 'scaling',
                 'rotation': FROZEN, 'opacity_raw': FROZEN, 'alive': FROZEN}
+# the groups whose leaves hold one row per anchor slot
+PER_ANCHOR_GROUPS = ('anchor', 'offset', 'mask', 'anchor_feat', 'scaling',
+                     FROZEN)
 HEAD_GROUPS = {'opacity': 'mlp_opacity', 'cov': 'mlp_cov',
                'color': 'mlp_color', 'grid': 'mlp_grid',
                'deform': 'mlp_deform', 'feature_bank': 'mlp_featurebank'}
@@ -117,3 +123,28 @@ class Adam:
             v.copy_((1 - B2) * (g * g) + B2 * v)
             u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
             p.add_(-lrs[group] * u)
+
+    @torch.no_grad()
+    def anchor_surgery(self, model: Model, old_capacity: int,
+                       changed: np.ndarray) -> None:
+        """After densification: take the leaves of ``model`` (new tensors
+        where the capacity grew), zero-pad the moments of the per-anchor
+        groups from ``old_capacity`` rows to the new capacity, and zero
+        the rows of the ``changed`` slots. The other groups' moments and
+        the count are kept."""
+        params = param_groups(model)
+        if [n for n, _, _ in params] != [n for n, _, _ in self.params]:
+            raise ValueError("the model's trained leaves changed names")
+        new_capacity = model.state.capacity
+        idx = torch.from_numpy(changed).to(model.state.device)
+        for i, (_, group, p) in enumerate(params):
+            if group not in PER_ANCHOR_GROUPS:
+                continue
+            for moments in (self.m, self.v):
+                rows = moments[i].view(old_capacity, -1)
+                if new_capacity > old_capacity:
+                    rows = torch.cat([rows, rows.new_zeros(
+                        (new_capacity - old_capacity, rows.shape[1]))])
+                rows.index_fill_(0, idx, 0.0)
+                moments[i] = rows.reshape(p.shape)
+        self.params = params

@@ -50,10 +50,29 @@ nonzero:
    rtol applied to the magnitudes of each entry's pixel terms; most
    entries of every gradient row resolved, planted faults caught, and
    bitwise equal to itself from one launch to the next.
+9. phase2_grad_reference: at 128x128, one phase-2 training step (the
+   hash-grid context, the adaptive noise, the rate) on copies of the
+   untrained model, the card against the plain path on the CPU with the
+   same ``DecodeNoise``: the gradient of every trained leaf (anchor
+   leaves, six heads, four hash tables) within P2_GRAD_TOL of the leaf's
+   largest (the hash tables' gradients are sums of atomic adds on the
+   card, in no fixed order).
+10. schedule: a fresh ``Trainer`` on the perturbed untrained model at
+   ``GSConfig(**SCHEDULE)``: 40 steps through phase 0 (1-10), phase 1
+   (11-20), the bounds refresh (20) and phase 2 (21-40), with
+   ``adjust_anchor`` at steps 20 and 30. One line per step (its phase and
+   ms), one ``densify`` line per surgery (n_new, n_pruned, n_alive,
+   capacity, capacity_grown, time_s), one summary (mean and median step
+   ms per phase, the phase-2 rate); losses finite, the phase-2 rate
+   finite and positive, exactly two surgeries, n_alive moved by n_new -
+   n_pruned, K2 once a step and K1, K3, K4 twice (remat).
+11. kernels on a phase-2 step's inputs after the densification steps, as
+   in phase 8.
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
-K4 at the render's shapes with their training shapes under
-``train_shape``, K2 at the training shape; the ptxas report of each:
+K4 at the render's shapes with their training and post-schedule shapes
+under ``train_shape`` and ``schedule_shape``, K2 at the training shape;
+launches of the render, train and schedule paths; the ptxas report of each:
 registers, static shared memory, spill bytes; for K1 and K2 also the
 block shape and dynamic shared memory), the one before it
 the card's name and power limit; the last line is
@@ -92,6 +111,14 @@ K2_ROWS = ("d mx", "d my", "d ca", "d cb", "d cc", "d op", "d depth", "d r",
            "d g", "d b")
 K2_RESOLVED_SHARE = 0.5
 TRAIN_STEPS = 30
+# the schedule phase: GSConfig()'s widths, its step numbers cut so that 40
+# steps cross phase 1 (11-20), the bounds refresh (20), phase 2 (21-40)
+# and densification at steps 20 and 30
+SCHEDULE = dict(voxel_size=0.03, use_dpr=True, start_stat=0, iterations=40,
+                noise_from_step=10, context_from_step=20, update_from=10,
+                update_interval=10, update_until=40)
+P2_PAIR_CAPACITY = 1 << 21     # no pair overflow at 128x128
+P2_GRAD_TOL = 1e-3             # of each leaf's largest gradient
 
 
 def emit(obj: dict) -> None:
@@ -478,23 +505,15 @@ def perturbed(model, seed: int):
     return model._replace(state=st._replace(feat=feat))
 
 
-def train_phase(model, cams, frames, depths, voxel: float, counters: dict,
-                device: str = "cuda"):
-    """Trainer.run for TRAIN_STEPS steps toward ``frames``/``depths``; one
-    record per step with its milliseconds between CUDA events recorded at
-    the ends of consecutive steps (the host loop reads every step's
-    metrics, so each step ends synchronized)."""
+def timed_run(trainer, views, iterations: int, counters: dict):
+    """``trainer.run`` up to step ``iterations`` with every launch counter
+    set to 0 just before and read just after -> (records, step ms, launch
+    counts, wall seconds, peak device bytes, caught warnings). A step's
+    ms lie between CUDA events recorded at the ends of consecutive steps
+    (the host loop reads every step's metrics, so each step ends
+    synchronized); None on the CPU."""
     import warnings
-    from bloomscene_tpu_torch.config import GSConfig
-    from bloomscene_tpu_torch.train.loop import Trainer
-    cfg = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)
-    dev = torch.device(device)
-    views = [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
-              torch.as_tensor(d, device=dev))
-             for c, f, d in zip(cams, frames, depths)]
-    trainer = Trainer(perturbed(model, SEED), cfg, cams[0].intrinsics, voxel,
-                      seed=SEED, device=device)
-    timed = dev.type == "cuda"
+    timed = trainer.bg.device.type == "cuda"
     marks, records = [], []
 
     def mark():
@@ -516,19 +535,39 @@ def train_phase(model, cams, frames, depths, voxel: float, counters: dict,
         warnings.simplefilter("always")
         t0 = time.perf_counter()
         mark()
-        trainer.run(views, iterations=TRAIN_STEPS, log_every=1,
+        trainer.run(views, iterations=iterations, log_every=1,
                     callback=on_step)
         if timed:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    ms = [marks[i].elapsed_time(marks[i + 1]) if timed else None
+          for i in range(len(records))]
+    peak = torch.cuda.max_memory_allocated() if timed else None
+    return records, ms, launches, wall, peak, caught
+
+
+def train_phase(model, cams, frames, depths, voxel: float, counters: dict,
+                device: str = "cuda"):
+    """Trainer.run for TRAIN_STEPS steps toward ``frames``/``depths``; one
+    record per step with its milliseconds (``timed_run``)."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.train.loop import Trainer
+    cfg = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)
+    dev = torch.device(device)
+    views = [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
+              torch.as_tensor(d, device=dev))
+             for c, f, d in zip(cams, frames, depths)]
+    trainer = Trainer(perturbed(model, SEED), cfg, cams[0].intrinsics, voxel,
+                      seed=SEED, device=device)
+    records, ms, launches, wall, peak, caught = timed_run(
+        trainer, views, TRAIN_STEPS, counters)
     steps = []
-    for i, rec in enumerate(records):
+    for rec, t in zip(records, ms):
         steps.append({k: rec[k] for k in (
             "iteration", "loss", "psnr", "n_visible_anchors", "num_pairs",
             "tile_overflow", "pair_overflow", "packed_overflow", "skipped")})
-        steps[-1]["ms"] = (marks[i].elapsed_time(marks[i + 1]) if timed
-                           else None)
+        steps[-1]["ms"] = t
     losses = [r["loss"] for r in records]
     per_forward = 2 if cfg.remat else 1
     checks = {
@@ -547,28 +586,33 @@ def train_phase(model, cams, frames, depths, voxel: float, counters: dict,
         "steps_per_s": len(records) / wall, "launches": launches,
         "loss_first5": float(np.mean(losses[:5])),
         "loss_last5": float(np.mean(losses[-5:])),
-        "peak_mem_bytes": (torch.cuda.max_memory_allocated() if timed
-                           else None),
+        "peak_mem_bytes": peak,
         "warnings": len(caught),
         "first_warning": str(caught[0].message) if caught else None,
         "checks": checks}
     return trainer, cfg, views, steps, summary, all(checks.values())
 
 
-def train_blend_inputs(trainer, cfg, views):
-    """One training step's render of the first view and the cotangents of
-    its loss: (res, counts_p, gx, K1's final_T and n_contrib, the six
-    cotangent planes K2 reads)."""
+def train_blend_inputs(trainer, cfg, views, phase: int = 0):
+    """One training step's render of the first view in ``phase`` (its
+    noise drawn from a seed) and the cotangents of its loss: (res,
+    counts_p, gx, K1's final_T and n_contrib, the six cotangent planes K2
+    reads)."""
+    from bloomscene_tpu_torch.models.decode import draw_noise
     from bloomscene_tpu_torch.models.render import prefilter_anchors, render
     from bloomscene_tpu_torch.ops.cuda.blend import blend_forward
     from bloomscene_tpu_torch.ops.cuda.wrapper import cotangent_planes
     from bloomscene_tpu_torch.ops.tiles import tile_grid
-    from bloomscene_tpu_torch.train.loop import compute_losses
+    from bloomscene_tpu_torch.train.loop import compute_losses, decoded_rows
     cam, gt_image, gt_depth = views[0]
     intr, model, tile = trainer.intr, trainer.model, cfg.tile_size
     gx, gy = tile_grid(intr.width, intr.height, tile)
+    dev = model.state.device
+    noise = draw_noise(decoded_rows(model, cfg), cfg, phase,
+                       torch.Generator(device=dev).manual_seed(SEED + 5), dev)
     with torch.enable_grad():
-        res = render(model, intr, cam, cfg, mode="train", bg=trainer.bg,
+        res = render(model, intr, cam, cfg, phase=phase, mode="train",
+                     bg=trainer.bg, noise=noise,
                      visible=prefilter_anchors(model, intr, cam))
         loss, _ = compute_losses(res, gt_image, gt_depth, cfg)
         outs = (res.out.color, res.out.depth, res.out.alpha, res.out.final_T)
@@ -582,10 +626,10 @@ def train_blend_inputs(trainer, cfg, views):
     return res, counts_p, gx, Tf, ncon, u
 
 
-def train_kernel_checks(trainer, cfg, views):
-    """On the inputs of one training step (the trained model, the first
-    view): K3, K4 and K1 at the training shapes, and K2 against its plain
-    version, twice.
+def train_kernel_checks(trainer, cfg, views, phase: int = 0):
+    """On the inputs of one training step in ``phase`` (the trained model,
+    the first view): K3, K4 and K1 at the training shapes, and K2 against
+    its plain version, twice.
 
     1. At the loss's own scale, within atol 2e-6 + rtol 2e-4
        (tests/test_pallas_blend.py:79-80). The loss is a mean over the
@@ -607,7 +651,8 @@ def train_kernel_checks(trainer, cfg, views):
     from bloomscene_tpu_torch.ops.cuda.wrapper import reduce_entry_grads
     intr = trainer.intr
     tile, cap = cfg.tile_size, cfg.max_splats_per_tile
-    res, counts_p, gx, Tf, ncon, u = train_blend_inputs(trainer, cfg, views)
+    res, counts_p, gx, Tf, ncon, u = train_blend_inputs(trainer, cfg, views,
+                                                        phase)
     bins = res.bins
     fwd_rows, fwd_ok = forward_kernel_rows(res, intr, cfg,
                                            int(bins.src_lane.numel()))
@@ -674,6 +719,133 @@ def train_kernel_checks(trainer, cfg, views):
                 "sum_walk": int(walk.sum()),
                 "sum_n_contrib": int(ncon.sum())})
     return row, k2_ok, fwd_rows, fwd_ok
+
+
+def phase2_grad_reference(model, size: int, repo: str):
+    """One phase-2 step at ``size`` x ``size`` on copies of ``model``: the
+    gradient of every trained leaf (the anchor leaves, the six heads, the
+    four hash tables) on the card against the plain path on the CPU, from
+    the same view, seeded targets and ``DecodeNoise``. Each leaf within
+    P2_GRAD_TOL of its largest CPU gradient."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models.decode import DecodeNoise, draw_noise
+    from bloomscene_tpu_torch.train.loop import step_gradients
+    from bloomscene_tpu_torch.train.optim import make_trainable, param_groups
+    cfg = GSConfig(voxel_size=0.03, use_dpr=True, remat=False,
+                   pair_capacity=P2_PAIR_CAPACITY)
+    cam = orbit_cameras(1, size, size, repo)[0]
+    rng = np.random.default_rng(SEED + 4)
+    tgt_c = rng.uniform(0, 1, (size, size, 3)).astype(np.float32)
+    tgt_d = rng.uniform(1, 4, (size, size)).astype(np.float32)
+    noise = draw_noise(model.state.capacity, cfg, 2,
+                       torch.Generator().manual_seed(SEED + 4), "cpu")
+    out = {}
+    for side, dev in (("card", model.state.device),
+                      ("cpu", torch.device("cpu"))):
+        m = make_trainable(model_to(model, dev))
+        names = [n for n, _, _ in param_groups(m)]
+        t0 = time.perf_counter()
+        _, loss, _, res, grads, _ = step_gradients(
+            cfg, cam.intrinsics, torch.zeros(3, device=dev), m,
+            [p for _, _, p in param_groups(m)], cam.device_arrays(dev),
+            torch.from_numpy(tgt_c).to(dev), torch.from_numpy(tgt_d).to(dev),
+            phase=2, noise=DecodeNoise(*(x.to(dev) for x in noise)))
+        out[side] = dict(loss=float(loss.detach()),
+                             bit_per_param=float(
+                                 res.rate.bit_per_param.detach()),
+                             num_pairs=int(res.bins.num_pairs),
+                             seconds=time.perf_counter() - t0,
+                             grads=[g.detach().cpu() for g in grads])
+    leaves, ok = {}, out["card"]["num_pairs"] == out["cpu"]["num_pairs"] > 0
+    for name, a, b in zip(names, out["card"]["grads"], out["cpu"]["grads"]):
+        scale = float(b.abs().max())
+        rel = max_abs(a, b) / scale if scale > 0 else max_abs(a, b)
+        leaves[name] = {"max_abs_err": max_abs(a, b), "max_abs": scale,
+                        "err_over_max": rel}
+        ok = ok and bool(torch.isfinite(a).all()) and rel <= P2_GRAD_TOL
+    for name in ("grid.xyz", "heads.grid.0.weight", "state.anchor"):
+        ok = ok and leaves[name]["max_abs"] > 0     # the context is reached
+    summary = {k: {f: v[f] for f in ("loss", "bit_per_param", "num_pairs",
+                                     "seconds")} for k, v in out.items()}
+    worst = max(leaves, key=lambda n: leaves[n]["err_over_max"])
+    return dict(size=size, tolerance=P2_GRAD_TOL, **summary,
+                worst_leaf=worst, leaves=leaves), ok
+
+
+def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
+                   device: str = "cuda"):
+    """A fresh Trainer on the perturbed model, run through SCHEDULE's
+    phases 0-2 and two densification steps; one record per step (with its
+    phase and ms), one per ``adjust_anchor``, and a summary with the mean
+    and median step ms of each phase."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.train.loop import Trainer, phase_of_step
+    cfg = GSConfig(**SCHEDULE)
+    dev = torch.device(device)
+    views = [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
+              torch.as_tensor(d, device=dev))
+             for c, f, d in zip(cams, frames, depths)]
+    trainer = Trainer(perturbed(model, SEED), cfg, cams[0].intrinsics, voxel,
+                      seed=SEED, device=device)
+    alive0 = trainer.model.state.num_alive()
+    capacity0 = trainer.model.state.capacity
+    records, ms, launches, wall, peak, caught = timed_run(
+        trainer, views, cfg.iterations, counters)
+    steps, dens = [], []
+    alive, capacity, alive_chain = alive0, capacity0, True
+    for rec, t in zip(records, ms):
+        it = rec["iteration"]
+        steps.append({"iteration": it, "train_phase": phase_of_step(it, cfg),
+                      "ms": t, **{k: rec[k] for k in (
+                          "loss", "psnr", "bit_per_param",
+                          "n_visible_anchors", "num_pairs", "skipped",
+                          "tile_overflow", "pair_overflow")}})
+        if "densify_n_alive" in rec:
+            d = {k[len("densify_"):]: v for k, v in rec.items()
+                 if k.startswith("densify_")}
+            d["capacity_grown"] = d["capacity"] != capacity
+            alive_chain &= d["n_alive"] == alive + d["n_new"] - d["n_pruned"]
+            alive, capacity = d["n_alive"], d["capacity"]
+            dens.append({"iteration": it, **d})
+    by_phase = {}
+    for p in (0, 1, 2):
+        t = [s["ms"] for s in steps if s["train_phase"] == p]
+        by_phase[p] = {"steps": len(t), "first_ms": t[0] if t else None,
+                       "mean_ms": float(np.mean(t)) if t and t[0] else None,
+                       "median_ms": float(np.median(t)) if t and t[0]
+                       else None}
+    bpp = [s["bit_per_param"] for s in steps if s["train_phase"] == 2]
+    per_forward = 2 if cfg.remat else 1
+    n = cfg.iterations
+    checks = {
+        "steps": len(records) == n,
+        "finite": all(np.isfinite(s["loss"]) for s in steps),
+        "phase2_rate": bool(bpp) and all(np.isfinite(b) and b > 0
+                                         for b in bpp),
+        "densified_twice": [d["iteration"] for d in dens] == [20, 30],
+        "n_alive_moved_by_new_less_pruned": alive_chain,
+        "alive_at_end": trainer.model.state.num_alive() == alive,
+        "blend_backward_once_per_step": launches["blend_backward"] == n,
+        "forward_kernels_once_per_forward": all(
+            launches[k] == per_forward * n
+            for k in ("pair_expansion", "slab_expansion", "blend_forward")),
+    }
+    summary = {
+        "steps": len(records), "wall_s": wall, "launches": launches,
+        "anchors_start": alive0, "capacity_start": capacity0,
+        "anchors_end": trainer.model.state.num_alive(),
+        "capacity_end": trainer.model.state.capacity,
+        "step_ms_by_phase": by_phase,
+        "bit_per_param_phase2": {"first": bpp[0] if bpp else None,
+                                 "last": bpp[-1] if bpp else None,
+                                 "mean": float(np.mean(bpp)) if bpp
+                                 else None},
+        "skipped_updates": int(sum(s["skipped"] for s in steps)),
+        "peak_mem_bytes": peak, "warnings": len(caught),
+        "first_warning": str(caught[0].message) if caught else None,
+        "checks": checks}
+    return trainer, cfg, views, steps, dens, summary, all(checks.values())
 
 
 def main() -> int:
@@ -771,7 +943,10 @@ def main() -> int:
     if not gref_ok:
         failed.append("grad_reference")
 
-    # 7. the training path (perturbs and trains the model in place)
+    # 7. the training path (perturbs and trains the model in place; the
+    # later phases start from a copy of the untrained one)
+    from bloomscene_tpu_torch.convert import model_to
+    fresh = model_to(model, model.state.device)
     trainer, cfg_t, views, steps, summary, train_ok = train_phase(
         model, cams, frames, depths, voxel, counters)
     for step in steps:
@@ -790,22 +965,56 @@ def main() -> int:
                if not good]
     if not k2_ok:
         failed.append("blend_backward")
+
+    # 9. one phase-2 step's gradients, card against CPU
+    p2ref, p2ref_ok = phase2_grad_reference(fresh, 128, repo)
+    emit({"phase": "phase2_grad_reference", **p2ref, "ok": p2ref_ok})
+    if not p2ref_ok:
+        failed.append("phase2_grad_reference")
+
+    # 10. the whole schedule: phases 0-2, the bounds refresh, two
+    # densification steps
+    trainer_s, cfg_s, views_s, s_steps, s_dens, s_summary, s_ok = \
+        schedule_phase(fresh, cams, frames, depths, voxel, counters)
+    for step in s_steps:
+        emit({"phase": "schedule_step", **step})
+    for d in s_dens:
+        emit({"phase": "densify", **d})
+    emit({"phase": "schedule", "card": card, **s_summary, "ok": s_ok})
+    if not s_ok:
+        failed.append("schedule")
+
+    # 11. the kernels on a phase-2 step's inputs after the densification
+    s_row, s_k2_ok, s_fwd_rows, s_fwd_ok = train_kernel_checks(
+        trainer_s, cfg_s, views_s, phase=2)
+    for r in s_fwd_rows + [s_row]:
+        emit({"phase": "kernel", "at": "schedule_step", "card": card, **r})
+    failed += [f"{name} (schedule step)" for name, good in s_fwd_ok.items()
+               if not good]
+    if not s_k2_ok:
+        failed.append("blend_backward (schedule step)")
+
     train_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
-    for r, t in zip(rows, fwd_rows):
+    for r, t, u in zip(rows, fwd_rows, s_fwd_rows):
         r["train_shape"] = {k: t[k] for k in train_keys}
+        r["schedule_shape"] = {k: u[k] for k in train_keys}
+    row["schedule_shape"] = {k: s_row[k] for k in train_keys}
     rows.append(row)
-    # a kernel's launches are those of both paths, render and train
+    # a kernel's launches are those of the three main paths: render,
+    # train and the schedule
     for r in rows:
         r["launches_render"] = launches[r["name"]]
         r["launches_train"] = summary["launches"][r["name"]]
-        r["launches"] = r["launches_render"] + r["launches_train"]
+        r["launches_schedule"] = s_summary["launches"][r["name"]]
+        r["launches"] = (r["launches_render"] + r["launches_train"]
+                         + r["launches_schedule"])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_render", "launches_train", "block",
-            "dynamic_smem_bytes", "static_smem_bytes", "registers",
-            "spill_bytes", "train_shape")
+            "launches_render", "launches_train", "launches_schedule",
+            "block", "dynamic_smem_bytes", "static_smem_bytes", "registers",
+            "spill_bytes", "train_shape", "schedule_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:

@@ -3,7 +3,7 @@
 one card.
 
     python3 profile_render_torch.py [--frames 8]
-    python3 profile_render_torch.py --train 10
+    python3 profile_render_torch.py --train 10 [--phase 2]
 
 Builds the scene of ``chip_smoke.py`` (~111K anchors, GSConfig defaults,
 512x512, the rotate360 orbit).
@@ -21,14 +21,17 @@ each frame:
 model, ``GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)``, the 8
 orbit frames as targets); two warm-up steps, N steps of ``Trainer.run``
 timed on the host clock, then N more under ``torch.profiler``: per step,
-for each ``record_function`` span of the step (``train.*``) and of the
-tile blend's backward (``tile_blend.*``: cotangent planes, K2, the
-emission-order reduction) its host time and the device time of the
-kernels inside its device-side interval, the device time by kernel name,
-and the device's busy share. The backward runs on autograd's device
-thread, outside the ``train.backward`` span's device-side interval; the
-line gives its device time as the window's total less the other step
-spans.
+for each ``record_function`` span of the step (``train.*``), of the
+decode (``decode.context``: the hash grid and the grid head;
+``decode.rate``: the entropy rate) and of the tile blend's backward
+(``tile_blend.*``: cotangent planes, K2, the emission-order reduction)
+its host time and the device time of the kernels inside its device-side
+interval, the device time by kernel name, and the device's busy share.
+The backward runs on autograd's device thread, outside the
+``train.backward`` span's device-side interval; the line gives its device
+time as the window's total less the other step spans. ``--phase 1`` or
+``--phase 2`` moves the schedule's boundaries before step 1, so every
+step runs in that phase (no densification step is due).
 
 Prints one JSON object per measurement, the card's name and power limit
 first. Needs one CUDA card.
@@ -44,7 +47,7 @@ import time
 import torch
 
 
-SPAN_PREFIXES = ("train.", "tile_blend.")     # record_function spans
+SPAN_PREFIXES = ("train.", "tile_blend.", "decode.")  # record_function
 
 
 def kernel_table(prof) -> list[dict]:
@@ -97,7 +100,7 @@ def span_table(prof, steps: int) -> dict:
     return spans
 
 
-def profile_train(steps: int, repo: str) -> int:
+def profile_train(steps: int, repo: str, phase: int = 0) -> int:
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
     from bloomscene_tpu_torch.config import GSConfig
@@ -111,7 +114,10 @@ def profile_train(steps: int, repo: str) -> int:
                                           cfg, cs.SEED, "cuda")
     cams = cs.orbit_cameras(cs.N_FRAMES, 512, 512, repo)
     frames, depths, _ = render_model(model, cams, cfg, mode="eval")
-    cfg_t = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)
+    # every step in ``phase``: the phase boundaries moved before step 1
+    bounds = {0: {}, 1: dict(noise_from_step=0),
+              2: dict(noise_from_step=0, context_from_step=0)}[phase]
+    cfg_t = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0, **bounds)
     views = [(c.device_arrays("cuda"), torch.as_tensor(f, device="cuda"),
               torch.as_tensor(d, device="cuda"))
              for c, f, d in zip(cams, frames, depths)]
@@ -135,7 +141,7 @@ def profile_train(steps: int, repo: str) -> int:
     others = sum(spans.get(f"train.{k}", {}).get("device_busy_ms", 0.0)
                  for k in ("prefilter", "forward", "update", "stats"))
     print(json.dumps({
-        "steps": steps, "step_ms_unprofiled": plain_ms,
+        "steps": steps, "phase": phase, "step_ms_unprofiled": plain_ms,
         "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": device_ms,
         "backward_device_ms_per_step": device_ms - others,
@@ -151,6 +157,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--train", type=int, default=0, metavar="STEPS",
                     help="profile STEPS training steps instead of frames")
+    ap.add_argument("--phase", type=int, default=0, choices=(0, 1, 2),
+                    help="the training phase of the profiled steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render_torch: needs a CUDA card", file=sys.stderr)
@@ -158,7 +166,7 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     if args.train:
-        return profile_train(args.train, repo)
+        return profile_train(args.train, repo, args.phase)
     import chip_smoke as cs
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.models.decode import (attribute_means,
@@ -223,7 +231,7 @@ def main() -> int:
             sub, means = timed("compact", lambda: (
                 compact_visible(model, vis, vcap)[0],
                 attribute_means(model.state)))
-            dec = timed("decode", lambda: decode_neural_gaussians(
+            dec, _ = timed("decode", lambda: decode_neural_gaussians(
                 sub, a.camera_center, cfg, mode="eval", attr_means=means))
             proj = timed("project", lambda: _project(
                 dec.xyz, dec.scaling, dec.rotation, intr, a))

@@ -185,8 +185,8 @@ def test_decode_matches_jax(models, mode):
     F, K = tcfg.feat_dim, tcfg.n_offsets
     cam = np.array([0.1, -0.2, 0.3], np.float32)
     dj, _ = jax_decode(m, jnp.asarray(cam), jcfg, phase=0, mode=mode)
-    dt = decode_neural_gaussians(tm, torch.from_numpy(cam), tcfg, phase=0,
-                                 mode=mode)
+    dt, _ = decode_neural_gaussians(tm, torch.from_numpy(cam), tcfg,
+                                    phase=0, mode=mode)
     alive = np.asarray(m.state.alive)
     flipped = np.zeros(alive.shape, bool)
     if mode == 'eval':
