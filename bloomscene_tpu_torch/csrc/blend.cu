@@ -41,6 +41,15 @@
 // Blocks are per tile, so the TPU's 128-tile lane groups, occupancy-sorted
 // group maxima and unrolled chains have no counterpart here.
 //
+// Any tile from 1 to 32: a block is ceil(tile*tile / 2) threads rounded up
+// to whole warps. Where tile*tile is a multiple of 64 (tiles 8, 16, 24,
+// 32) every lane holds two pixels of one row and the kernel is built as
+// above (GENERAL = false). Otherwise (GENERAL = true) each pixel takes its
+// own row and dy (at an odd tile a thread's two pixels may straddle two
+// rows), and a lane past the tile's pixels starts stopped: it stages and
+// derives its share of each batch and meets every barrier, but walks no
+// splat and writes nothing.
+//
 // Bitwise equal to the plain version: built with --fmad=false, and each
 // pixel's arithmetic is the plain version's in its order (a contracted FMA
 // could move a pixel across the 1e-4 stop or the 1/255 skip). Scaling by
@@ -57,6 +66,7 @@ constexpr int BATCH = 64;           // slots per staged batch
 constexpr int REC = 12;             // floats per derived splat record
 constexpr int PIX = 2;              // pixels per thread
 constexpr int MAX_THREADS = 512;    // tile 32: 1,024 pixels
+constexpr int MAX_TILE = 32;
 // the JAX package's constants (ops/reference_rasterizer.py), rounded from
 // double to float as a float32 comparison with a Python float rounds them
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
@@ -81,6 +91,7 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+template <bool GENERAL>
 __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
     const float* __restrict__ slab, const int* __restrict__ counts_p,
     const int* __restrict__ tid, int cap, int num_tiles, int tile, int gx,
@@ -119,15 +130,20 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
     }
   };
 
-  // the thread's pixels: sp = 2 th and 2 th + 1, one row, adjacent columns
-  const float px0 = (float)((t % gx) * tile + (2 * th) % tile);
-  const float px1 = px0 + 1.0f;
-  const float py = (float)((t / gx) * tile + (2 * th) / tile);
+  // the thread's pixels: sp = 2 th and 2 th + 1, adjacent columns of one
+  // row unless GENERAL; a pixel past the tile's P is inactive
+  const int sp0 = PIX * th, sp1 = sp0 + 1;
+  const bool act0 = !GENERAL || sp0 < P, act1 = !GENERAL || sp1 < P;
+  const float px0 = (float)((t % gx) * tile + sp0 % tile);
+  const float py0 = (float)((t / gx) * tile + sp0 / tile);
+  const float px1 =
+      GENERAL ? (float)((t % gx) * tile + sp1 % tile) : px0 + 1.0f;
+  const float py1 = GENERAL ? (float)((t / gx) * tile + sp1 / tile) : py0;
   float T0 = 1.0f, T1 = 1.0f, Cr0 = 0.0f, Cr1 = 0.0f, Cg0 = 0.0f, Cg1 = 0.0f,
         Cb0 = 0.0f, Cb1 = 0.0f, D0 = 0.0f, D1 = 0.0f, acc0 = ACC_SEED,
         acc1 = ACC_SEED;
   int nc0 = 0, nc1 = 0;
-  bool live0 = true, live1 = true;
+  bool live0 = act0, live1 = act1;
 
   if (cnt > 0) {
     issue(0);
@@ -150,15 +166,17 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
       const float4 d0 = *reinterpret_cast<const float4*>(r);
       // rows: mx, my, skip_below, 0 | -ca/2, -cc/2, -cb, op |
       // depth, r, g, b
-      const float dy = d0.y - py;
+      const float dy0 = d0.y - py0;
+      const float dy1 = GENERAL ? d0.y - py1 : dy0;
       const float4 d1 = *reinterpret_cast<const float4*>(r + 4);
       // -0.5 (a dx^2 + c dy^2) - b dx dy with the -0.5 and the sign taken
       // into a, c and b: exact scalings, so the same bits
-      const float ccdd = d1.y * dy * dy;
+      const float ccdd0 = d1.y * dy0 * dy0;
+      const float ccdd1 = GENERAL ? d1.y * dy1 * dy1 : ccdd0;
       const float dx0 = d0.x - px0;
       const float dx1 = d0.x - px1;
-      const float pw0 = (d1.x * dx0 * dx0 + ccdd) + d1.z * dx0 * dy;
-      const float pw1 = (d1.x * dx1 * dx1 + ccdd) + d1.z * dx1 * dy;
+      const float pw0 = (d1.x * dx0 * dx0 + ccdd0) + d1.z * dx0 * dy0;
+      const float pw1 = (d1.x * dx1 * dx1 + ccdd1) + d1.z * dx1 * dy1;
       const bool n0 = live0 && pw0 >= d0.z;
       const bool n1 = live1 && pw1 >= d0.z;
       if (!(n0 || n1)) continue;
@@ -195,8 +213,10 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
   const float out[2][6] = {{Cr0, Cg0, Cb0, D0, acc0, T0},
                            {Cr1, Cg1, Cb1, D1, acc1, T1}};
   const int ncs[2] = {nc0, nc1};
+  const bool act[2] = {act0, act1};
 #pragma unroll
   for (int e = 0; e < PIX; ++e) {
+    if (!act[e]) continue;
     const long long o = (long long)(PIX * th + e) * num_tiles + p;
 #pragma unroll
     for (int c = 0; c < 6; ++c) planes[c * plane + o] = out[e][c];
@@ -207,13 +227,10 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
 }  // namespace
 
 // Block shape of a tile: threads (whole warps) and dynamic shared memory
-// bytes (none: the buffers are static); nonzero when the tile does not fit
-// the design.
+// bytes (none: the buffers are static); nonzero for a tile outside 1-32.
 extern "C" int bs_blend_forward_shape(int tile, int* threads, int* smem) {
-  const int n = tile * tile / PIX;
-  if (tile < 1 || tile * tile % (PIX * 32) || n > MAX_THREADS)
-    return (int)cudaErrorInvalidValue;
-  *threads = n;
+  if (tile < 1 || tile > MAX_TILE) return (int)cudaErrorInvalidValue;
+  *threads = (tile * tile + PIX * 32 - 1) / (PIX * 32) * 32;
   *smem = 0;
   return 0;
 }
@@ -226,7 +243,9 @@ extern "C" int bs_blend_forward(const float* slab, const int* counts_p,
   const int err = bs_blend_forward_shape(tile, &threads, &smem);
   if (err) return err;
   if (num_tiles > 0) {
-    blend_fwd_kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
+    const auto kernel = tile * tile % (PIX * 32) ? blend_fwd_kernel<true>
+                                                 : blend_fwd_kernel<false>;
+    kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
         slab, counts_p, tid, cap, num_tiles, tile, gx, planes, ncon_out);
   }
   return (int)cudaGetLastError();

@@ -54,6 +54,15 @@
 // Every sum has a fixed order, so two runs give the same bits (the only
 // atomic is the integer max of n_contrib).
 //
+// Any tile from 1 to 32: a block is ceil(tile*tile / 2) threads rounded up
+// to whole warps. Where tile*tile is a multiple of 64 (tiles 8, 16, 24,
+// 32) every lane holds two pixels of one row and the kernel is built as
+// above (GENERAL = false). Otherwise (GENERAL = true) each pixel takes its
+// own row and dy, and a pixel past the tile's P is inactive: it reads no
+// input (n_contrib 0, T 1, cotangents 0), never blends, and its terms are
+// set to exact zeros, so the lanes that pad the last warp take part in
+// every shuffle and partial sum with zeros only.
+//
 // Built with --fmad=false, and every per-pixel expression keeps the order
 // of the plain version (ops/cuda/blend.py::blend_backward_plain), so the
 // per-pixel values round alike; only the pixel sums' order differs.
@@ -71,6 +80,7 @@ constexpr int REC = 12;            // floats per staged slot: the 10 rows,
 constexpr int STAGE = B * REC;     // floats per staged batch
 constexpr int PART_STRIDE = B * GRAD_W + 1;  // per partial, padded
 constexpr int MAX_THREADS = 512;   // tile 32: 1,024 pixels, two a thread
+constexpr int MAX_TILE = 32;
 constexpr int MAX_LOADS = (DATA_W * B + 31) / 32;  // staging loads a thread
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float ALPHA_MAX = (float)0.99;
@@ -96,6 +106,7 @@ __device__ __forceinline__ void exchange(float* out, const float* a,
   }
 }
 
+template <bool GENERAL>
 __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
     const float* __restrict__ slab, const int* __restrict__ counts_p,
     const int* __restrict__ tid, const float* __restrict__ final_T,
@@ -115,18 +126,32 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
   const int n_part = (n_threads >> 5) * 4;
   const int t = tid[p];
 
-  // the thread's pixels: sp = 2 th and 2 th + 1, one row, adjacent columns
-  const float px0 = (float)((t % gx) * tile + (2 * th) % tile);
-  const float px1 = px0 + 1.0f;
-  const float py = (float)((t / gx) * tile + (2 * th) / tile);
-  const long long o0 = (long long)(2 * th) * num_tiles + p;
+  // the thread's pixels: sp = 2 th and 2 th + 1, adjacent columns of one
+  // row unless GENERAL; a pixel past the tile's P is inactive
+  const int P = tile * tile;
+  const int sp0 = 2 * th, sp1 = sp0 + 1;
+  const bool act0 = !GENERAL || sp0 < P, act1 = !GENERAL || sp1 < P;
+  const float px0 = (float)((t % gx) * tile + sp0 % tile);
+  const float py0 = (float)((t / gx) * tile + sp0 / tile);
+  const float px1 =
+      GENERAL ? (float)((t % gx) * tile + sp1 % tile) : px0 + 1.0f;
+  const float py1 = GENERAL ? (float)((t / gx) * tile + sp1 / tile) : py0;
+  const long long o0 = (long long)sp0 * num_tiles + p;
   const long long o1 = o0 + num_tiles;
-  const int nc0 = ncon[o0], nc1 = ncon[o1];
-  float T0 = final_T[o0], T1 = final_T[o1];
-  const float ur0 = u_r[o0], ur1 = u_r[o1], ug0 = u_g[o0], ug1 = u_g[o1],
-              ub0 = u_b[o0], ub1 = u_b[o1], ud0 = u_d[o0], ud1 = u_d[o1],
-              uo0 = u_one[o0], uo1 = u_one[o1];
-  const float tb0 = -T0 * bg_term[o0], tb1 = -T1 * bg_term[o1];
+  // an inactive pixel reads nothing: n_contrib 0, T 1, cotangents 0
+  auto in = [&](const auto* a, long long o, bool act, auto zero) {
+    return act ? a[o] : zero;
+  };
+  const int nc0 = in(ncon, o0, act0, 0), nc1 = in(ncon, o1, act1, 0);
+  float T0 = in(final_T, o0, act0, 1.0f), T1 = in(final_T, o1, act1, 1.0f);
+  const float ur0 = in(u_r, o0, act0, 0.0f), ur1 = in(u_r, o1, act1, 0.0f),
+              ug0 = in(u_g, o0, act0, 0.0f), ug1 = in(u_g, o1, act1, 0.0f),
+              ub0 = in(u_b, o0, act0, 0.0f), ub1 = in(u_b, o1, act1, 0.0f),
+              ud0 = in(u_d, o0, act0, 0.0f), ud1 = in(u_d, o1, act1, 0.0f),
+              uo0 = in(u_one, o0, act0, 0.0f),
+              uo1 = in(u_one, o1, act1, 0.0f);
+  const float tb0 = -T0 * in(bg_term, o0, act0, 0.0f),
+              tb1 = -T1 * in(bg_term, o1, act1, 0.0f);
   float Sr0 = 0.0f, Sg0 = 0.0f, Sb0 = 0.0f, Sd0 = 0.0f, S10 = 0.0f;
   float Sr1 = 0.0f, Sg1 = 0.0f, Sb1 = 0.0f, Sd1 = 0.0f, S11 = 0.0f;
 
@@ -225,13 +250,16 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
         const float mx = r0.x, my = r0.y, ca = r0.z, cb = r0.w, cc = r1.x,
                     op = r1.y, de = r1.z, cr = r1.w, cg = r2.x, cbl = r2.y,
                     below = r2.z;
-        const float dy = my - py;
-        const float ccdd = cc * dy * dy;
+        const float dy0 = my - py0;
+        float dy1 = GENERAL ? my - py1 : dy0;
+        const float ccdd0 = cc * dy0 * dy0;
+        const float ccdd1 = GENERAL ? cc * dy1 * dy1 : ccdd0;
         const float dx0 = mx - px0;
-        const float dx1 = mx - px1;
-        const float pw0 = -0.5f * (ca * dx0 * dx0 + ccdd) - cb * dx0 * dy;
-        const float pw1 = -0.5f * (ca * dx1 * dx1 + ccdd) - cb * dx1 * dy;
-        const bool n0 = pw0 >= below, n1 = pw1 >= below;
+        float dx1 = mx - px1;
+        const float pw0 = -0.5f * (ca * dx0 * dx0 + ccdd0) - cb * dx0 * dy0;
+        const float pw1 = -0.5f * (ca * dx1 * dx1 + ccdd1) - cb * dx1 * dy1;
+        // act0 is false only where act1 is: such a lane skips the slot
+        const bool n0 = act0 && pw0 >= below, n1 = act1 && pw1 >= below;
         float v[GRAD_W];
 #pragma unroll
         for (int c = 0; c < GRAD_W; ++c) v[c] = 0.0f;
@@ -271,15 +299,19 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
           S10 = S10 + w0;
           S11 = S11 + w1;
           const float h0 = (oG0 < ALPHA_MAX ? G0 : 0.0f) * d0;
-          const float h1 = (oG1 < ALPHA_MAX ? G1 : 0.0f) * d1;
+          float h1 = (oG1 < ALPHA_MAX ? G1 : 0.0f) * d1;
+          if (GENERAL && !act1) {
+            // exact zeros in every term of the inactive pixel
+            h1 = dx1 = dy1 = 0.0f;
+          }
           const float hx0 = h0 * dx0, hx1 = h1 * dx1;
-          const float hy0 = h0 * dy, hy1 = h1 * dy;
+          const float hy0 = h0 * dy0, hy1 = h1 * dy1;
           v[0] = h0 + h1;
           v[1] = hx0 + hx1;
           v[2] = hy0 + hy1;
           v[3] = hx0 * dx0 + hx1 * dx1;
-          v[4] = hx0 * dy + hx1 * dy;
-          v[5] = hy0 * dy + hy1 * dy;
+          v[4] = hx0 * dy0 + hx1 * dy1;
+          v[5] = hy0 * dy0 + hy1 * dy1;
           v[6] = w0 * ud0 + w1 * ud1;
           v[7] = w0 * ur0 + w1 * ur1;
           v[8] = w0 * ug0 + w1 * ug1;
@@ -316,11 +348,10 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
 }  // namespace
 
 // Block shape of a tile: threads (whole warps) and dynamic shared memory
-// bytes; nonzero when the tile does not fit the design.
+// bytes; nonzero for a tile outside 1-32.
 extern "C" int bs_blend_backward_shape(int tile, int* threads, int* smem) {
-  const int n = tile * tile / 2;
-  if (tile < 1 || tile * tile % 64 || n > MAX_THREADS)
-    return (int)cudaErrorInvalidValue;
+  if (tile < 1 || tile > MAX_TILE) return (int)cudaErrorInvalidValue;
+  const int n = (tile * tile + 63) / 64 * 32;
   *threads = n;
   *smem = (int)sizeof(float) * (3 * STAGE + 2 * (n / 32) * 4 * PART_STRIDE);
   return 0;
@@ -337,12 +368,14 @@ extern "C" int bs_blend_backward(const float* slab, const int* counts_p,
   const int err = bs_blend_backward_shape(tile, &threads, &smem);
   if (err) return err;
   if (num_tiles > 0) {
+    const auto kernel = tile * tile % 64 ? blend_bwd_kernel<true>
+                                         : blend_bwd_kernel<false>;
     // a block may take more than 48 KB of dynamic shared memory (84,736
     // bytes at tile 32) only when the kernel is allowed it
     const cudaError_t set = cudaFuncSetAttribute(
-        blend_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (set != cudaSuccess) return (int)set;
-    blend_bwd_kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
+    kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
         slab, counts_p, tid, final_T, ncon, u_r, u_g, u_b, u_d, u_one,
         bg_term, cap, num_tiles, tile, gx, grad);
   }

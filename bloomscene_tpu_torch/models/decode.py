@@ -4,7 +4,11 @@
 through the straight-through quantizer and mask, the heads and, in phase
 2, the hash tables); ``mode='eval'`` quantizes the attributes with
 STE_multistep at the adaptive step from the hash-grid context
-(gaussian_renderer:131-145) and runs without grad. Training phases:
+(gaussian_renderer:131-145) and runs without grad; ``mode='decoded'``
+takes the attributes as they are, with neither the context nor the
+quantization, and runs without grad: the render of a scene that the codec
+decoded, whose attributes are already the quantized values. Training
+phases:
 
 - phase 0 (step <= noise_from_step): the raw attributes;
 - phase 1 (up to context_from_step): additive N(0, Q_base) noise on the
@@ -86,6 +90,18 @@ def draw_noise(rows: int, cfg: GSConfig, phase: int,
         choose=torch.rand((rows,), **kw) if phase == 2 else None)
 
 
+def repeat_rows(x: torch.Tensor, k: int, dim: int = 0) -> torch.Tensor:
+    """``torch.repeat_interleave(x, k, dim)``, each entry ``k`` times in
+    place, built as a broadcast: its backward sums the ``k`` copies as a
+    reduction, where repeat_interleave's backward (index_add_) adds them
+    atomically on the card, in no fixed order."""
+    dim = dim % x.dim()
+    shape = list(x.shape)
+    out = x.unsqueeze(dim + 1).expand(*shape[:dim + 1], k, *shape[dim + 1:])
+    shape[dim] *= k
+    return out.reshape(shape)
+
+
 def masked_mean(x, w):
     return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
 
@@ -124,8 +140,7 @@ def _rate(cfg: GSConfig, st, visible, noise: DecodeNoise, mask_rate,
     bit_feat = entropy_gaussian_bits(*feat_args)                # [C, F]
     bit_scaling = entropy_gaussian_bits(*scaling_args)          # [C, 6]
     bit_offsets = entropy_gaussian_bits(*offset_args)           # [C, 3K]
-    bit_offsets = bit_offsets * torch.repeat_interleave(
-        binary_mask[:, :, 0], 3, dim=-1)
+    bit_offsets = bit_offsets * repeat_rows(binary_mask[:, :, 0], 3, dim=-1)
     n_chosen = torch.clamp(torch.sum(cw), min=1.0)
     sum_feat = torch.sum(bit_feat * cw[:, None])
     sum_scaling = torch.sum(bit_scaling * cw[:, None])
@@ -150,15 +165,16 @@ def decode_neural_gaussians(model: Model, cam_center: torch.Tensor,
                             noise: DecodeNoise | None = None,
                             attr_means: tuple | None = None
                             ) -> tuple[DecodedGaussians, RateInfo | None]:
-    """-> (decoded Gaussians, rate); the rate is None in eval mode.
+    """-> (decoded Gaussians, rate); the rate is None in eval and decoded
+    mode.
     ``noise`` holds the train-mode draws of phases 1 and 2 over the
     model's rows. ``attr_means`` overrides the quantization centers (eval,
     and the phase-2 rate): render() passes the full state's when it
     decodes a compacted visible subset. On a CUDA device the heads run in
     full float32 (TF32 off, see ``device.strict_fp32``)."""
-    if mode not in ('train', 'eval') or phase not in (0, 1, 2):
+    if mode not in ('train', 'eval', 'decoded') or phase not in (0, 1, 2):
         raise ValueError(f"decode phase {phase} mode {mode!r}: phases 0-2 "
-                         "in 'train' or 'eval' mode")
+                         "in 'train', 'eval' or 'decoded' mode")
     if mode == 'train' and phase > 0 and noise is None:
         raise ValueError(f"a train-mode decode in phase {phase} needs its "
                          "DecodeNoise")
@@ -186,7 +202,7 @@ def _decode(model: Model, cam_center: torch.Tensor, cfg: GSConfig,
         grid_scaling = grid_scaling + noise.scaling * cfg.q_base_scaling
         grid_offsets = grid_offsets + noise.offsets * cfg.q_base_offsets
 
-    if mode == 'eval' or phase == 2:
+    if mode == 'eval' or (train and phase == 2):
         with record_function("decode.context"):
             ctx = calc_interp_feat(model, anchor, cfg)          # [C, ctx]
             out = heads_lib.apply_grid(model.heads, ctx)
@@ -246,8 +262,8 @@ def _decode(model: Model, cam_center: torch.Tensor, cfg: GSConfig,
     opacity = torch.where(child_valid, neural_opacity, 0.0)
 
     scale_rot = heads_lib.apply_cov(model.heads, cat_view).reshape(-1, 7)
-    scaling6 = torch.repeat_interleave(grid_scaling, K, dim=0)  # [C*K, 6]
-    anchors_rep = torch.repeat_interleave(anchor, K, dim=0)     # [C*K, 3]
+    scaling6 = repeat_rows(grid_scaling, K)                     # [C*K, 6]
+    anchors_rep = repeat_rows(anchor, K)                        # [C*K, 3]
     offsets = grid_offsets.reshape(-1, 3)
 
     scaling = scaling6[:, 3:] * torch.sigmoid(scale_rot[:, :3])

@@ -86,3 +86,11 @@ def apply_grid(heads: Heads, x):
 
 def apply_feature_bank(heads: Heads, x):
     return torch.softmax(heads.feature_bank(x), dim=1)
+
+
+def mlp_param_bits(heads: Heads, bits_per_param: int = 32) -> int:
+    """Size in bits of the MLPs the codec stores: every head but ``deform``
+    (get_mlp_size, gaussian_model.py:283-288)."""
+    return bits_per_param * sum(
+        p.numel() for name, mod in heads.named_children() if name != 'deform'
+        for p in mod.parameters())

@@ -3,7 +3,8 @@
 The port of ``bloomscene_tpu/models/render.py`` (gaussian_renderer.render
 + prefilter_voxel, gaussian_renderer/__init__.py:211-349). A train-mode
 render is differentiable in the model's leaves that require grad (and in
-``mean2d_offset``); an eval-mode render runs without grad.
+``mean2d_offset``); an eval-mode or decoded-mode render runs without
+grad.
 """
 from __future__ import annotations
 
@@ -126,7 +127,7 @@ def _render(model, intr, cam, cfg, phase, mode, bg, visible, mean2d_offset,
     visible_idx = attr_means = None
     if (visible_capacity is not None and visible is not None
             and model.state.capacity > visible_capacity):
-        if mode == 'eval' or phase == 2:
+        if mode == 'eval' or (mode == 'train' and phase == 2):
             # quantization centers come from the FULL state, so the render
             # does not depend on the compaction
             attr_means = attribute_means(model.state)

@@ -12,7 +12,12 @@ with the 5-carry suffix-sum recurrence, writing per-entry gradients
 [10, cap, T] (see ``csrc/blend_bwd.cu`` for the arithmetic).
 
 Both kernels run one block per tile position, two adjacent pixels a
-thread (see the sources' notes for the designs). The plain versions run
+thread, and take any tile from 1 to MAX_TILE (see the sources' notes for
+the designs and for tiles whose pixel count is not a multiple of 64).
+The JAX package's blend takes any tile; above MAX_TILE a block would
+need more threads than the kernels are built for (``__launch_bounds__``
+of 512 keeps K2's state in registers), so the wrappers raise there. The
+plain versions run
 the same per-slot recurrences over all pixels of all tiles at once, as the
 TPU kernels do.
 """
@@ -29,10 +34,8 @@ from .build import check, library, require, stream_ptr
 DATA_W = 10      # slab rows: mx, my, ca, cb, cc, op, depth, r, g, b
 GRAD_W = 10      # gradient rows: d mx, my, ca, cb, cc, op, depth, r, g, b
 
-# both kernels give each thread two adjacent pixels and take a tile as one
-# block of whole warps: tile*tile a multiple of 64, at most 1024
-TILE_PIXELS_MULTIPLE = 64
-MAX_PIXELS = 1024
+# both kernels give each thread two adjacent pixels, at most 512 threads
+MAX_TILE = 32
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
@@ -41,12 +44,10 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
 
 def check_tile(tile: int) -> int:
     """tile*tile, the pixels of one block of the blend kernels."""
-    P = tile * tile
-    if tile < 1 or P > MAX_PIXELS or P % TILE_PIXELS_MULTIPLE:
-        raise ValueError(f"tile {tile}: the blend kernels need tile*tile <= "
-                         f"{MAX_PIXELS} and a multiple of "
-                         f"{TILE_PIXELS_MULTIPLE}")
-    return P
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile {tile}: the blend kernels take tiles 1 to "
+                         f"{MAX_TILE}")
+    return tile * tile
 
 
 def blend_forward(slab: torch.Tensor, counts_p: torch.Tensor,

@@ -17,8 +17,11 @@ uint32 arithmetic, so the index is formed in int64 and masked to 32 bits
 after every multiply, before the modulo. Autograd carries the gradient
 into the tables (through the sign's straight-through rule and the corner
 gathers' scatter-add) and into ``x`` (through the corner weights), as JAX
-autodiff does; on the card the scatter-adds are atomic, so their sums are
-not bitwise and not in a fixed order.
+autodiff does. All of an encoder's corner gathers (every level and
+corner) are one ``index_select`` of the flat table, whose backward is
+``ops/cuda/hashgrid_bwd.py::grid_scatter``: on the card a kernel that
+adds each cell's entries in a fixed order, so two identical steps give
+the same table gradients; on the CPU ``index_add_``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .cuda.hashgrid_bwd import grid_scatter
 from .quantization import ste_binary
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
@@ -98,6 +102,24 @@ def _corner_index(coords: torch.Tensor, resolution: int, table_size: int,
     return idx % table_size
 
 
+class _GridGather(torch.autograd.Function):
+    """rows = emb.index_select(0, idx), with ``grid_scatter`` as the
+    backward to ``emb``."""
+
+    @staticmethod
+    def forward(ctx, emb, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_cells = emb.shape[0]
+        return emb.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        return grid_scatter(g.contiguous(), idx, ctx.n_cells), None
+
+
 def grid_encode(params: torch.Tensor, x: torch.Tensor,
                 spec: GridSpec) -> torch.Tensor:
     """Encode x in [0,1]^d -> [N, n_levels * n_features]."""
@@ -106,19 +128,15 @@ def grid_encode(params: torch.Tensor, x: torch.Tensor,
     n = x.shape[0]
     in_bounds = torch.all((x >= 0.0) & (x <= 1.0), dim=-1)     # [N]
 
-    outs = []
+    # every level's corner cells and weights, then one gather of them all
+    idx_all, wv_all = [], []
     offsets = spec.offsets
     for li, R in enumerate(spec.resolutions):
-        table = emb[offsets[li]:offsets[li + 1]]               # [S, F]
         table_size = spec.level_sizes[li]
         pos = x * (R - 2) + 0.5                                # [N, d]
         pos0f = torch.floor(pos)
         frac = pos - pos0f
         pos0 = pos0f.to(torch.int64)
-
-        acc = torch.zeros((n, spec.n_features), dtype=torch.float32,
-                          device=x.device)
-        wn = torch.zeros((n, 1), dtype=torch.float32, device=x.device)
         for corner in range(2 ** spec.num_dim):
             w = torch.ones((n,), dtype=torch.float32, device=x.device)
             coords = []
@@ -131,16 +149,24 @@ def grid_encode(params: torch.Tensor, x: torch.Tensor,
                     coords.append(pos0[:, d])
             coords = torch.stack(coords, -1)                   # [N, d]
             on_ring = torch.any((coords == 0) | (coords == R - 1), dim=-1)
-            idx = _corner_index(torch.clamp(coords, 0, R - 1), R,
-                                table_size, spec.num_dim)
-            # index_select, not table[idx]: its backward is index_add_
-            # (atomic adds on the card), where indexing's backward on the
-            # card serializes repeated indices, and every dead anchor (at
-            # the origin) shares one cell
-            vals = table.index_select(0, idx)                  # [N, F]
-            wv = torch.where(on_ring, 0.0, w)
-            acc = acc + wv[:, None] * vals
-            wn = wn + wv[:, None]
+            idx_all.append(_corner_index(torch.clamp(coords, 0, R - 1), R,
+                                         table_size, spec.num_dim))
+            wv_all.append(torch.where(on_ring, 0.0, w))
+    n_corners = 2 ** spec.num_dim
+    level_of = torch.tensor(offsets[:-1], device=x.device)
+    idx = (torch.stack(idx_all).view(-1, n_corners, n)
+           + level_of[:, None, None]).reshape(-1)
+    # one unbind: its backward stacks the corners' cotangents in one copy
+    vals = _GridGather.apply(emb, idx).view(-1, n, spec.n_features).unbind(0)
+
+    outs = []
+    for li in range(len(spec.resolutions)):
+        acc = torch.zeros((n, spec.n_features), dtype=torch.float32,
+                          device=x.device)
+        wn = torch.zeros((n, 1), dtype=torch.float32, device=x.device)
+        for k in range(li * n_corners, (li + 1) * n_corners):
+            acc = acc + wv_all[k][:, None] * vals[k]
+            wn = wn + wv_all[k][:, None]
         outs.append(acc / (wn + 1e-9))
 
     out = torch.cat(outs, -1)                                  # [N, L*F]
@@ -190,3 +216,11 @@ def mix_encode(params: dict, x: torch.Tensor,
     out_xz = grid_encode(params['xz'], x[:, [0, 2]], spec.spec_2d)
     out_yz = grid_encode(params['yz'], x[:, [1, 2]], spec.spec_2d)
     return torch.cat([out_xyz, out_xy, out_xz, out_yz], -1)
+
+
+def all_grid_params_flat(params: dict) -> torch.Tensor:
+    """The four raw tables concatenated, xyz, xy, xz, yz (the codec's and
+    the size estimate's view, get_encoding_params,
+    gaussian_model.py:269-281)."""
+    return torch.cat([params['xyz'], params['xy'], params['xz'],
+                      params['yz']], 0)

@@ -2,8 +2,11 @@
 
 The port of ``BloomScene._render_model`` (bloomscene.py:248-336): two
 measuring passes size the per-frame buffers snugly, then every frame
-renders with them. The BloomScene class, ``--load_dir``, the codec and the
-video writer come later.
+renders with them. ``mode='eval'`` renders a trained scene (the hash-grid
+context quantizes its attributes), ``mode='decoded'`` the scene that
+``codec.decode_scene`` returns, as ``BloomScene.render_video(...,
+use_decoded=True)`` does (bloomscene.py:338-341). The BloomScene class,
+``--load_dir`` and the video writer come later.
 """
 from __future__ import annotations
 

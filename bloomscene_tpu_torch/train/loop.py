@@ -235,8 +235,10 @@ class Trainer:
         self.step_fn = make_train_step(cfg, intr, self.optimizer, self.bg,
                                        self.noise_gen)
         # camera draws: numpy, not the JAX package's key splits, so the
-        # draw sequence differs from JAX's for more than one camera
-        self.rng = np.random.default_rng(seed)
+        # draw sequence differs from JAX's for more than one camera; a
+        # stream spawned from the seed, apart from the surgery's below
+        self.rng = np.random.default_rng(
+            np.random.SeedSequence(seed).spawn(1)[0])
         # the surgery's draws: a numpy Generator of its own, as the JAX
         # trainer's np_rng
         self.densify_rng = np.random.default_rng(seed)

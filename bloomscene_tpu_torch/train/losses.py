@@ -108,6 +108,16 @@ def cmd(x1, x2, n_moments: int = 5, normalized: bool = False):
     return scms / x1.shape[0]
 
 
+def _replicate_pad(x: torch.Tensor, half: int) -> torch.Tensor:
+    """[H, W] -> [H + 2 half, W + 2 half], the edge rows and columns
+    repeated, as ``F.pad(mode='replicate')``; built from broadcasts, so
+    the backward sums the copies as reductions (replicate padding's own
+    backward adds them atomically on the card, in no fixed order)."""
+    x = torch.cat([x[:1].expand(half, -1), x, x[-1:].expand(half, -1)], 0)
+    return torch.cat([x[:, :1].expand(-1, half), x,
+                      x[:, -1:].expand(-1, half)], 1)
+
+
 def bilateral_smoothness(depth, spatial_sigma: float = 2.0,
                          color_sigma: float = 5.0, kernel_size: int = 5):
     """Edge-preserving depth smoothness (bilateral_filter, loss.py:63-80):
@@ -119,8 +129,7 @@ def bilateral_smoothness(depth, spatial_sigma: float = 2.0,
     spatial = torch.exp(-(x[None, :] ** 2 + x[:, None] ** 2)
                         / (2 * spatial_sigma ** 2))
     spatial = spatial / torch.sum(spatial)
-    dpad = F.pad(depth[None, None], (half, half, half, half),
-                 mode='replicate')[0, 0]
+    dpad = _replicate_pad(depth, half)
     H, W = depth.shape
     loss = torch.zeros((), device=depth.device)
     for dy in range(k):
@@ -151,3 +160,18 @@ def huber_l1_edge_aware(pred_depth, gt_depth, rgb, thresh: float = 0.2):
 def minmax_normalize(x, eps: float = 1e-8):
     """The reference's depth pre-normalization (bloomscene.py:298-305)."""
     return (x - torch.min(x)) / (torch.max(x) - torch.min(x) + eps)
+
+
+def sobel_edge_mask(image, threshold: float = 0.1, edge_is_one: bool = True):
+    """In-graph stand-in for image2canny (loss.py:138-142): central
+    differences of the gray image, zero on the border. [H, W, 3] -> [H, W]
+    float mask, 1 on edges (or 0 with ``edge_is_one=False``). No caller in
+    either package; kept for completeness."""
+    gray = torch.mean(image, -1)
+    gx = torch.zeros_like(gray)
+    gx[:, 1:-1] = gray[:, 2:] - gray[:, :-2]
+    gy = torch.zeros_like(gray)
+    gy[1:-1, :] = gray[2:, :] - gray[:-2, :]
+    mag = torch.sqrt(gx * gx + gy * gy)
+    edge = (mag > threshold).to(torch.float32)
+    return edge if edge_is_one else 1.0 - edge

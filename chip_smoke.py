@@ -52,11 +52,11 @@ nonzero:
    bitwise equal to itself from one launch to the next.
 9. phase2_grad_reference: at 128x128, one phase-2 training step (the
    hash-grid context, the adaptive noise, the rate) on copies of the
-   untrained model, the card against the plain path on the CPU with the
-   same ``DecodeNoise``: the gradient of every trained leaf (anchor
-   leaves, six heads, four hash tables) within P2_GRAD_TOL of the leaf's
-   largest (the hash tables' gradients are sums of atomic adds on the
-   card, in no fixed order).
+   untrained model, DETERMINISM_RUNS times on the card and once by the
+   plain path on the CPU with the same ``DecodeNoise``: the gradient of
+   every trained leaf (anchor leaves, six heads, four hash tables) within
+   P2_GRAD_TOL of the leaf's largest on the CPU (the sums run in other
+   orders), and bitwise equal between the steps on the card.
 10. schedule: a fresh ``Trainer`` on the perturbed untrained model at
    ``GSConfig(**SCHEDULE)``: 40 steps through phase 0 (1-10), phase 1
    (11-20), the bounds refresh (20) and phase 2 (21-40), with
@@ -68,11 +68,52 @@ nonzero:
    n_pruned, K2 once a step and K1, K3, K4 twice (remat).
 11. kernels on a phase-2 step's inputs after the densification steps, as
    in phase 8.
+12. hashgrid_bwd: the hash grid's deterministic backward on the four
+   encoders' cotangent rows of one phase-2 step of the schedule's trainer
+   (captured from the step's backward), against a float64 ``index_add_``
+   within 1e-6 of each cell's summed magnitudes, against its plain version
+   (``index_add_``, atomic), and bitwise equal to itself; times summed over
+   the step's four calls.
+13. codec: ``estimate_final_bits``, ``encode_scene`` of the schedule's
+   model and ``decode_scene`` with that model as the shell (as
+   ``BloomScene.compress`` does): sizes by stream, the estimate, the wall
+   times with their context/rANS split; the decoded masks equal the
+   encoded ones, the hash tables binarize identically, the features lie
+   within two quantization steps, and re-encoding the decoded scene
+   reproduces every ``.b`` stream byte for byte.
+14. decoded orbit: ``render_model(mode='decoded')`` of the decoded scene
+   over the 8 frames with every counter set to 0 just before and read
+   just after (K1, K3 and K4 once a frame, nothing else), beside an eval
+   render of the encoded scene over the same frames: decoded and eval fps.
+15. kernels at the decoded frame's shapes (K3, K4, K1, as in phase 4).
+16. golden: at 64x64, a seeded 400-Gaussian scene projected on the card;
+   the tile path (K3, K4, K1 forward, K2 backward through ``TileBlend``)
+   against ``rasterize_reference(tile=16)``, the dense golden blend that
+   shares no binning code with it, on the same projected splats: values
+   within tests/test_tile_rasterizer.py's tolerances (color, T and alpha
+   1e-5, depth 1e-4) and the gradients of that test's loss with respect to
+   mean2d, conic, depth, color, opacity and bg within atol 2e-5 + rtol
+   2e-3.
+17. growth: a trainer on the perturbed scene cut to a capacity with no
+   free slot, 20 steps with ``adjust_anchor`` at step 20, so the capacity
+   grows (``capacity_grown`` must be true); the optimizer's rebuilt list
+   must hold the model's live leaves, and one more step must change them;
+   then, at the grown shape, a phase-2 step's gradients card against CPU
+   (as phase 9) and K1-K4 on a phase-2 step's inputs (as phase 8).
+18. tiles: one orbit frame rendered at tiles 8, 12 and 16 (12 is no
+   multiple of 8: a block with a partial last warp); K1 bitwise and K2
+   within its magnitude tolerance of their plain versions, and their
+   times at each tile.
+19. phase2_ab: the schedule's trainer goes on for 4 runs of 5 phase-2
+   steps, with the hash grid's backward on the kernel, on ``index_add_``,
+   on ``index_add_``, on the kernel: the step medians of both.
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
-K4 at the render's shapes with their training and post-schedule shapes
-under ``train_shape`` and ``schedule_shape``, K2 at the training shape;
-launches of the render, train and schedule paths; the ptxas report of each:
+K4 at the render's shapes with their training, post-schedule, decoded and
+grown shapes under ``train_shape``, ``schedule_shape``, ``decoded_shape``
+and ``growth_shape``, K2 at the training shape, hashgrid_bwd at a phase-2
+step's; launches of the render, train, schedule, decoded orbit and growth
+paths; the ptxas report of each:
 registers, static shared memory, spill bytes; for K1 and K2 also the
 block shape and dynamic shared memory), the one before it
 the card's name and power limit; the last line is
@@ -119,6 +160,17 @@ SCHEDULE = dict(voxel_size=0.03, use_dpr=True, start_stat=0, iterations=40,
                 update_interval=10, update_until=40)
 P2_PAIR_CAPACITY = 1 << 21     # no pair overflow at 128x128
 P2_GRAD_TOL = 1e-3             # of each leaf's largest gradient
+DETERMINISM_RUNS = 3           # identical phase-2 steps on the card
+HASHGRID_RTOL = 1e-6           # of each cell's summed magnitudes
+# tests/test_tile_rasterizer.py:87-90 (values) and :125-126 (gradients)
+GOLDEN_TOL = {"color": (1e-5, 1e-5), "depth": (1e-4, 1e-4),
+              "final_T": (1e-5, 0.0), "alpha": (1e-5, 0.0)}
+GOLDEN_GRAD_ATOL, GOLDEN_GRAD_RTOL = 2e-5, 2e-3
+# the growth phase: densification at step 20 (the schedule's first, with
+# 19 steps of statistics) of a scene with no free slot
+GROWTH = dict(voxel_size=0.03, use_dpr=True, start_stat=0, iterations=20,
+              update_from=10, update_interval=10, update_until=30)
+AB_STEPS = 5                   # phase-2 steps a run of phase 19
 
 
 def emit(obj: dict) -> None:
@@ -263,13 +315,13 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def kernel_checks(model, cam, cfg, vcap, pcap):
+def kernel_checks(model, cam, cfg, vcap, pcap, mode: str = "eval"):
     """K3, K4 and K1 against their plain versions on one orbit frame's
-    inputs (the eval render's shapes)."""
+    inputs (the ``mode`` render's shapes)."""
     from bloomscene_tpu_torch.models.render import prefilter_anchors, render
     arrs = cam.device_arrays(model.state.device)
     vis = prefilter_anchors(model, cam.intrinsics, arrs) if vcap else None
-    res = render(model, cam.intrinsics, arrs, cfg, mode="eval", visible=vis,
+    res = render(model, cam.intrinsics, arrs, cfg, mode=mode, visible=vis,
                  visible_capacity=vcap, pair_capacity=pcap,
                  packed_capacity=pcap)
     return forward_kernel_rows(res, cam.intrinsics, cfg, pcap)
@@ -741,7 +793,9 @@ def phase2_grad_reference(model, size: int, repo: str):
     noise = draw_noise(model.state.capacity, cfg, 2,
                        torch.Generator().manual_seed(SEED + 4), "cpu")
     out = {}
+    repeats = [f"card_{i}" for i in range(2, DETERMINISM_RUNS + 1)]
     for side, dev in (("card", model.state.device),
+                      *((r, model.state.device) for r in repeats),
                       ("cpu", torch.device("cpu"))):
         m = make_trainable(model_to(model, dev))
         names = [n for n, _, _ in param_groups(m)]
@@ -766,11 +820,16 @@ def phase2_grad_reference(model, size: int, repo: str):
         ok = ok and bool(torch.isfinite(a).all()) and rel <= P2_GRAD_TOL
     for name in ("grid.xyz", "heads.grid.0.weight", "state.anchor"):
         ok = ok and leaves[name]["max_abs"] > 0     # the context is reached
+    # identical steps on the card: every leaf's gradient bitwise equal
+    deterministic = all(torch.equal(a, b) for r in repeats for a, b in zip(
+        out["card"]["grads"], out[r]["grads"]))
+    ok = ok and deterministic
     summary = {k: {f: v[f] for f in ("loss", "bit_per_param", "num_pairs",
                                      "seconds")} for k, v in out.items()}
     worst = max(leaves, key=lambda n: leaves[n]["err_over_max"])
     return dict(size=size, tolerance=P2_GRAD_TOL, **summary,
-                worst_leaf=worst, leaves=leaves), ok
+                worst_leaf=worst, card_deterministic=deterministic,
+                leaves=leaves), ok
 
 
 def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
@@ -830,6 +889,9 @@ def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
         "forward_kernels_once_per_forward": all(
             launches[k] == per_forward * n
             for k in ("pair_expansion", "slab_expansion", "blend_forward")),
+        # one backward a phase-2 step for each of the four encoders
+        "hashgrid_bwd_four_per_phase2_step": launches["hashgrid_bwd"]
+        == 4 * by_phase[2]["steps"],
     }
     summary = {
         "steps": len(records), "wall_s": wall, "launches": launches,
@@ -848,6 +910,356 @@ def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
     return trainer, cfg, views, steps, dens, summary, all(checks.values())
 
 
+def capture_grid_scatter(trainer, cfg, views):
+    """The cotangent rows, cells and table sizes that the hash grid's
+    backward takes in one phase-2 step of ``trainer`` (the first view;
+    its gradients are computed and dropped), one entry per encoder."""
+    from bloomscene_tpu_torch.models.decode import draw_noise
+    from bloomscene_tpu_torch.ops import hashgrid
+    from bloomscene_tpu_torch.train.loop import decoded_rows, step_gradients
+    cam, gt_image, gt_depth = views[0]
+    model, dev = trainer.model, trainer.bg.device
+    noise = draw_noise(decoded_rows(model, cfg), cfg, 2,
+                       torch.Generator(device=dev).manual_seed(SEED + 7), dev)
+    calls, original = [], hashgrid.grid_scatter
+
+    def record(rows, idx, n_cells):
+        calls.append((rows.clone(), idx.clone(), n_cells))
+        return original(rows, idx, n_cells)
+
+    hashgrid.grid_scatter = record
+    try:
+        step_gradients(cfg, trainer.intr, trainer.bg, model,
+                       [p for _, _, p in trainer.optimizer.params], cam,
+                       gt_image, gt_depth, phase=2, noise=noise)
+    finally:
+        hashgrid.grid_scatter = original
+    return calls
+
+
+def hashgrid_row(calls):
+    """hashgrid_bwd on one phase-2 step's four calls: against a float64
+    index_add_ (within HASHGRID_RTOL of each cell's summed magnitudes),
+    against its plain version (index_add_, atomic float32: twice that),
+    bitwise equal to itself; kernel, plain and index_add_ times and the
+    bound summed over the calls."""
+    from bloomscene_tpu_torch.ops.cuda import build
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import (
+        grid_scatter, grid_scatter_plain)
+    ok, err, used = True, 0.0, 0.0
+    ms = plain_ms = lib_ms = bound_s = sort_ms = 0.0
+    shapes = []
+    for rows, idx, n_cells in calls:
+        got = grid_scatter(rows, idx, n_cells)
+        again = grid_scatter(rows, idx, n_cells)
+        ref = grid_scatter_plain(rows.double(), idx, n_cells)
+        mag = grid_scatter_plain(rows.double().abs(), idx, n_cells)
+        plain = grid_scatter_plain(rows, idx, n_cells)
+        tol = HASHGRID_RTOL * mag
+        ok = (ok and torch.equal(got, again)
+              and bool(((got.double() - ref).abs() <= tol).all())
+              and bool(((got.double() - plain.double()).abs()
+                        <= 2 * tol).all())
+              and bool(torch.isfinite(got).all()))
+        err = max(err, max_abs(got, ref))
+        used = max(used, float(((got.double() - ref).abs()
+                                / tol.clamp(min=1e-300)).max()))
+        out = torch.zeros_like(plain)
+        ms += time_ms(lambda: grid_scatter(rows, idx, n_cells), 10)
+        # of it, the wrapper's stable sort of the cells
+        sort_ms += time_ms(lambda: torch.sort(idx.to(torch.int32),
+                                              stable=True), 10)
+        plain_ms += time_ms(lambda: grid_scatter_plain(rows, idx, n_cells),
+                            10)
+        lib_ms += time_ms(lambda: out.index_add_(0, idx, rows), 10)
+        M, F = rows.shape
+        # rows and cells read once, the table written once; F adds an entry
+        bound_s += bound(4 * M * F + 8 * M + 4 * n_cells * F, M * F)[0]
+        shapes.append({"entries": M, "features": F, "cells": n_cells,
+                       "largest_run": int(torch.unique(
+                           idx, return_counts=True)[1].max())})
+    return dict(
+        name="hashgrid_bwd", route="cuda",
+        source="bloomscene_tpu_torch/csrc/hashgrid_bwd.cu",
+        # no TPU kernel: the transpose of this gather, XLA's scatter-add
+        replaces="bloomscene_tpu/ops/hashgrid.py:147", max_abs_err=err, max_tolerance_used=used,
+        rtol_of_magnitudes=HASHGRID_RTOL, deterministic=ok, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_s, bound_by="bytes",
+        library_ms=lib_ms, sort_ms=sort_ms, calls=len(calls),
+        **ptxas_report(build.build_log("hashgrid_bwd")),
+        shapes={"calls": shapes}), ok
+
+
+def codec_phase(model, cfg, workdir: str, device: str = "cuda"):
+    """estimate, encode and decode (the model as the shell) of ``model``,
+    then the decoded scene's checks and a re-encode of it."""
+    import shutil
+    from bloomscene_tpu_torch.codec.codec import (decode_scene, encode_scene,
+                                                  estimate_final_bits)
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models.anchors import get_mask, get_mask_anchor
+    from bloomscene_tpu_torch.ops.hashgrid import all_grid_params_flat
+    shutil.rmtree(workdir, ignore_errors=True)
+    path, path2 = (os.path.join(workdir, d) for d in ("bitstreams",
+                                                      "bitstreams2"))
+    model = model_to(model, model.state.device)
+    t0 = time.perf_counter()
+    est = estimate_final_bits(model, cfg)
+    est_s = time.perf_counter() - t0
+    sizes = encode_scene(model, cfg, path)
+    t0 = time.perf_counter()
+    dec_t: dict = {}
+    decoded = decode_scene(model, cfg, path, timings=dec_t, device=device)
+    decode_s = time.perf_counter() - t0
+    st = model_to(model, "cpu").state
+    keep = st.alive & (get_mask_anchor(st) > 0)
+    dst = model_to(decoded, "cpu").state
+    masks_equal = torch.equal(get_mask(dst), get_mask(st)[keep])
+    ob = all_grid_params_flat(model.grid).cpu()
+    db = all_grid_params_flat(decoded.grid).cpu()
+    hash_equal = torch.equal(torch.where(ob >= 0, 1.0, -1.0), db)
+    feat_err = max_abs(dst.feat, st.feat[keep])
+    sizes2 = encode_scene(decoded, cfg, path2)
+    def read(d, f):
+        with open(os.path.join(d, f), "rb") as fh:
+            return fh.read()
+
+    streams = sorted(f for f in os.listdir(path) if f.endswith(".b"))
+    same = [f for f in streams if read(path, f) == read(path2, f)]
+    reencode_equal = (len(same) == len(streams)
+                      and sorted(os.listdir(path)) == sorted(
+                          os.listdir(path2)))
+    checks = {"n_anchors": sizes["n_anchors"] == decoded.state.num_alive()
+              == est["n_anchors"] > 0,
+              "decoded_on_device": decoded.state.device.type
+              == torch.device(device).type,
+              "masks_equal": masks_equal,
+              "hash_binarized_equal": hash_equal,
+              "feat_within_two_steps": feat_err < 2 * cfg.q_base_feat,
+              "reencode_byte_identical": reencode_equal}
+    mb = {k: v for k, v in sizes.items() if k.endswith("_MB")}
+    out = dict(sizes_MB=mb, estimate_MB={k: v for k, v in est.items()
+                                         if k.endswith("_MB")},
+               n_anchors=sizes["n_anchors"], estimate_s=est_s,
+               encode_s=sizes["encode_time_s"],
+               encode_split={k: sizes[k] for k in ("context_s",
+                                                   "quantize_s", "rans_s")},
+               decode_s=decode_s, decode_split=dec_t,
+               reencode_s=sizes2["encode_time_s"], streams=len(streams),
+               streams_identical=len(same), feat_max_abs_err=feat_err,
+               checks=checks)
+    return decoded, out, all(checks.values())
+
+
+def golden_check(size: int = 64, n: int = 400, device: str = "cuda"):
+    """At ``size`` x ``size``, a seeded scene of ``n`` Gaussians projected
+    on the card: the tile path (K3, K4, K1, and K2 in the backward)
+    against rasterize_reference(tile=16) on the same projected splats,
+    values and the gradients of tests/test_tile_rasterizer.py's loss."""
+    from bloomscene_tpu_torch.ops import graphics, projection
+    from bloomscene_tpu_torch.ops.projection import ProjectedSplats
+    from bloomscene_tpu_torch.ops.reference_rasterizer import (
+        rasterize_reference)
+    from bloomscene_tpu_torch.ops.tile_rasterizer import rasterize_tiles
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 6)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    means = np.stack([rng.uniform(-1.2, 1.2, n), rng.uniform(-1.2, 1.2, n),
+                      rng.uniform(0.8, 5.0, n)], -1)
+    scales = rng.uniform(0.02, 0.25, (n, 3))
+    quats = rng.normal(size=(n, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    colors = rng.uniform(0, 1, (n, 3))
+    opac = rng.uniform(0.1, 0.95, n)
+    view = graphics.world_to_view(np.eye(3), np.zeros(3))
+    full = graphics.projection_matrix(0.01, 100.0, 1.0, 1.0) @ view
+    f = graphics.fov2focal(1.0, size)
+    proj = projection.project_gaussians(
+        t(means), projection.build_cov3d(t(scales), t(quats)), t(view),
+        t(full), size, size, f, f, float(np.tan(0.5)), float(np.tan(0.5)))
+    tgt_c = t(rng.uniform(0, 1, (size, size, 3)))
+    tgt_d = t(rng.uniform(1, 4, (size, size)))
+    live = (proj.mean2d, proj.conic, proj.depth, t(colors), t(opac),
+            t([0.25, 0.5, 0.75]))
+    names = ("mean2d", "conic", "depth", "color", "opac", "bg")
+
+    def run(raster):
+        leaves = [x.detach().clone().requires_grad_(True) for x in live]
+        p = ProjectedSplats(mean2d=leaves[0], depth=leaves[2],
+                            conic=leaves[1], radius=proj.radius,
+                            valid=proj.valid)
+        out = raster(p, leaves[3], leaves[4], leaves[5])
+        loss = (torch.mean((out.color - tgt_c) ** 2)
+                + 0.7 * torch.mean((out.depth - tgt_d) ** 2)
+                + 0.1 * torch.mean(out.final_T) + 0.05 * torch.mean(out.alpha))
+        return out, loss, torch.autograd.grad(loss, leaves)
+
+    gold, loss_g, g_gold = run(lambda p, c, o, b: rasterize_reference(
+        p, c, o, b, size, size, tile=16))
+    tile, loss_t, g_tile = run(lambda p, c, o, b: rasterize_tiles(
+        p, c, o, b, size, size, tile=16, tile_capacity=256)[0])
+    values, grads, ok = {}, {}, int(proj.valid.sum()) > 0
+    for field, (atol, rtol) in GOLDEN_TOL.items():
+        a, b = getattr(tile, field).detach(), getattr(gold, field).detach()
+        values[field] = max_abs(a, b)
+        ok = ok and bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+    for nm, a, b in zip(names, g_tile, g_gold):
+        grads[nm] = {"max_abs_err": max_abs(a, b),
+                     "max_abs": float(b.abs().max())}
+        ok = ok and bool(torch.allclose(a, b, atol=GOLDEN_GRAD_ATOL,
+                                        rtol=GOLDEN_GRAD_RTOL))
+        ok = ok and bool(torch.isfinite(a).all())
+    ok = ok and float(g_gold[2].abs().max()) > 0        # depth reached
+    return dict(size=size, gaussians=n, valid=int(proj.valid.sum()),
+                loss=float(loss_t.detach()),
+                loss_golden=float(loss_g.detach()),
+                max_abs_err=values, grads=grads, tolerances=GOLDEN_TOL,
+                grad_atol=GOLDEN_GRAD_ATOL, grad_rtol=GOLDEN_GRAD_RTOL), ok
+
+
+def growth_phase(model, cams, frames, depths, voxel: float, counters: dict,
+                 device: str = "cuda"):
+    """A Trainer on the perturbed ``model`` cut to its alive anchors (no
+    free slot), run to GROWTH's densification step, which must grow the
+    capacity; the optimizer's list must hold the model's live leaves and
+    one more step must change them."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models.anchors import update_anchor_bounds
+    from bloomscene_tpu_torch.train.loop import Trainer
+    from bloomscene_tpu_torch.train.optim import param_groups
+    cfg = GSConfig(**GROWTH)
+    dev = torch.device(device)
+    model = model_to(model, dev)
+    n = model.state.num_alive()
+    keep = torch.arange(n, device=dev)
+    st = model.state.gather_rows(keep, model.state.alive[keep])
+    model = model._replace(state=st, bounds=update_anchor_bounds(st))
+    views = [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
+              torch.as_tensor(d, device=dev))
+             for c, f, d in zip(cams, frames, depths)]
+    trainer = Trainer(perturbed(model, SEED), cfg, cams[0].intrinsics, voxel,
+                      seed=SEED, device=device)
+    capacity0 = trainer.model.state.capacity
+    records, ms, launches, wall, peak, caught = timed_run(
+        trainer, views, cfg.iterations, counters)
+    dens = {k[len("densify_"):]: v for k, v in records[-1].items()
+            if k.startswith("densify_")}
+    dens["capacity_grown"] = dens.get("capacity", capacity0) != capacity0
+    held = [p for _, _, p in trainer.optimizer.params]
+    live = [p for _, _, p in param_groups(trainer.model)]
+    holds_live = (len(held) == len(live)
+                  and all(a is b for a, b in zip(held, live)))
+    moments_fit = all(m.shape == p.shape for m, p in
+                      zip(trainer.optimizer.m, held))
+    before = [p.detach().clone() for p in held]
+    trainer.run(views, iterations=cfg.iterations + 1, log_every=1)
+    names = [nm for nm, _, _ in trainer.optimizer.params]
+    changed = {nm: not torch.equal(a, p.detach())
+               for nm, a, p in zip(names, before, held)}
+    state_changed = all(changed[nm] for nm in (
+        "state.feat", "state.offset", "state.scaling_log",
+        "state.mask_logit"))
+    checks = {
+        "capacity_grown": dens["capacity_grown"],
+        "capacity_end": trainer.model.state.capacity > capacity0,
+        "optimizer_holds_live_leaves": holds_live,
+        "moments_fit_leaves": moments_fit,
+        "step_changes_live_leaves": state_changed,
+        "finite": all(np.isfinite(r["loss"]) for r in records),
+        "blend_backward_once_per_step":
+            launches["blend_backward"] == cfg.iterations,
+        "forward_kernels_once_per_forward": all(
+            launches[k] == (2 if cfg.remat else 1) * cfg.iterations
+            for k in ("pair_expansion", "slab_expansion", "blend_forward")),
+    }
+    summary = {"anchors_start": n, "capacity_start": capacity0,
+               "capacity_end": trainer.model.state.capacity,
+               "densify": dens, "steps": len(records), "wall_s": wall,
+               "step_ms_median": float(np.median(ms[1:])) if ms[0] else None,
+               "launches": launches, "leaves_changed": sum(changed.values()),
+               "leaves": len(changed), "warnings": len(caught),
+               "checks": checks}
+    return trainer, cfg, views, summary, all(checks.values())
+
+
+def tile_checks(model, cam, cfg, tiles=(8, 12, 16)):
+    """One orbit frame rendered at each tile: K1 bitwise and K2 within its
+    magnitude tolerance against their plain versions (K2 on seeded
+    cotangent planes at a per-pixel scale), and both kernels' times."""
+    import dataclasses
+    from bloomscene_tpu_torch.models.render import prefilter_anchors, render
+    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
+                                                     blend_backward_plain,
+                                                     blend_forward,
+                                                     blend_forward_plain)
+    from bloomscene_tpu_torch.ops.tiles import tile_grid
+    intr = cam.intrinsics
+    arrs = cam.device_arrays(model.state.device)
+    vis = prefilter_anchors(model, intr, arrs)
+    out = {}
+    ok = True
+    for tile in tiles:
+        c = dataclasses.replace(cfg, tile_size=tile)
+        res = render(model, intr, arrs, c, mode="eval", visible=vis,
+                     pair_capacity=1 << 21, packed_capacity=1 << 21)
+        bins = res.bins
+        gx, _ = tile_grid(intr.width, intr.height, tile)
+        counts_p = bins.counts[bins.perm.long()].contiguous()
+        args = (bins.slab, counts_p, bins.perm, tile, gx)
+        fk = blend_forward(*args)
+        fp = blend_forward_plain(*args)
+        k1_bitwise = all(torch.equal(a, b) for a, b in zip(fk, fp))
+        rng = np.random.default_rng(SEED + 8)
+        u = [torch.from_numpy(rng.normal(size=fp[5].shape).astype(
+            np.float32)).to(fp[5].device) for _ in range(6)]
+        bargs = (*args, fp[5], fp[6], *u)
+        got = blend_backward(*bargs)
+        want = blend_backward_plain(*bargs)
+        tol = GRAD_ATOL + GRAD_RTOL * blend_backward_plain(*bargs,
+                                                           magnitude=True)
+        k2_ok = (bool(((got - want).abs() <= tol).all())
+                 and torch.equal(got, blend_backward(*bargs)))
+        ok = ok and k1_bitwise and k2_ok and int(bins.num_pairs) > 0
+        out[tile] = {
+            "positions": counts_p.numel(), "num_pairs": int(bins.num_pairs),
+            "k1_bitwise": k1_bitwise, "k2_within_tolerance": k2_ok,
+            "k1_ms": time_ms(lambda: blend_forward(*args), 50),
+            "k2_ms": time_ms(lambda: blend_backward(*bargs), 20),
+            "k1_block": launch_shape("blend", tile)["block"],
+            "k2_block": launch_shape("blend_bwd", tile)["block"],
+            "color_mean": float(res.out.color.mean())}
+    return out, ok
+
+
+def phase2_ab(trainer, views, counters: dict):
+    """AB_STEPS phase-2 steps of ``trainer`` four times: the hash grid's
+    backward on hashgrid_bwd, on index_add_ (its plain version), on
+    index_add_, on hashgrid_bwd -> the step ms of each arm."""
+    from bloomscene_tpu_torch.ops import hashgrid
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import grid_scatter_plain
+    original = hashgrid.grid_scatter
+    arms = {"hashgrid_bwd": [], "index_add_": []}
+    for arm in ("hashgrid_bwd", "index_add_", "index_add_", "hashgrid_bwd"):
+        hashgrid.grid_scatter = (original if arm == "hashgrid_bwd"
+                                 else grid_scatter_plain)
+        try:
+            _, ms, launches, _, _, _ = timed_run(
+                trainer, views, trainer.step + AB_STEPS, counters)
+        finally:
+            hashgrid.grid_scatter = original
+        arms[arm] += ms
+        if arm == "hashgrid_bwd" and launches["hashgrid_bwd"] != 4 * AB_STEPS:
+            return {"error": f"hashgrid_bwd launched "
+                    f"{launches['hashgrid_bwd']} times"}, False
+    out = {arm: {"steps": len(v), "median_ms": float(np.median(v)),
+                 "mean_ms": float(np.mean(v)), "ms": v}
+           for arm, v in arms.items()}
+    return out, True
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -860,6 +1272,7 @@ def main() -> int:
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
                                                      blend_forward)
     from bloomscene_tpu_torch.ops.cuda.expand import expand_slab
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import grid_scatter
     from bloomscene_tpu_torch.ops.cuda.pairs import expand_pairs
     from bloomscene_tpu_torch.pipeline.bloomscene import render_model
     failed = []
@@ -899,7 +1312,8 @@ def main() -> int:
     counters = {"pair_expansion": expand_pairs,
                 "slab_expansion": expand_slab,
                 "blend_forward": blend_forward,
-                "blend_backward": blend_backward}
+                "blend_backward": blend_backward,
+                "hashgrid_bwd": grid_scatter}
     for fn in counters.values():
         fn.launches = 0
     stats: list = []
@@ -913,7 +1327,8 @@ def main() -> int:
     shapes = all(f.shape == (512, 512, 3) and d.shape == (512, 512)
                  for f, d in zip(frames, depths))
     pairs_ok = all(s["num_pairs"] > 0 for s in stats)
-    counts_ok = all(v == (0 if name == "blend_backward" else len(frames))
+    counts_ok = all(v == (0 if name in ("blend_backward", "hashgrid_bwd")
+                          else len(frames))
                     for name, v in launches.items())
     emit({"phase": "render", "frames": len(frames), "fps": fps,
           "card": card, "launches": launches, "finite": finite,
@@ -994,27 +1409,129 @@ def main() -> int:
     if not s_k2_ok:
         failed.append("blend_backward (schedule step)")
 
-    train_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    # 12. the hash grid's backward on one phase-2 step's rows
+    hg_row, hg_ok = hashgrid_row(capture_grid_scatter(trainer_s, cfg_s,
+                                                      views_s))
+    emit({"phase": "kernel", "at": "schedule_step", "card": card, **hg_row})
+    if not hg_ok:
+        failed.append("hashgrid_bwd")
+
+    # 13. the codec on the schedule's model
+    decoded, codec, codec_ok = codec_phase(
+        trainer_s.model, cfg_s, os.path.join(repo, "outputs", "chip_smoke"))
+    emit({"phase": "codec", "card": card, **codec, "ok": codec_ok})
+    if not codec_ok:
+        failed.append("codec")
+
+    # 14. the decoded scene's orbit, beside the encoded scene's eval orbit
+    enc_frames, _, eval_fps = render_model(trainer_s.model, cams, cfg,
+                                           mode="eval", device="cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    d_stats: list = []
+    d_frames, d_depths, d_fps = render_model(decoded, cams, cfg,
+                                             mode="decoded", device="cuda",
+                                             frame_stats=d_stats)
+    d_launches = {name: fn.launches for name, fn in counters.items()}
+    d_checks = {
+        "finite": all(np.isfinite(f).all() and np.isfinite(d).all()
+                      for f, d in zip(d_frames, d_depths)),
+        "shapes": all(f.shape == (512, 512, 3) for f in d_frames),
+        "pairs": all(s_["num_pairs"] > 0 for s_ in d_stats),
+        "launches_once_a_frame": all(
+            v == (len(d_frames) if name in ("pair_expansion",
+                                            "slab_expansion",
+                                            "blend_forward") else 0)
+            for name, v in d_launches.items())}
+    emit({"phase": "decoded_orbit", "card": card, "frames": len(d_frames),
+          "decoded_fps": d_fps, "eval_fps": eval_fps,
+          "eval_fps_untrained_scene": fps, "launches": d_launches,
+          "frame_ms": [s_["ms"] for s_ in d_stats],
+          "visible_anchors": [s_["visible_anchors"] for s_ in d_stats],
+          "num_pairs": [s_["num_pairs"] for s_ in d_stats],
+          # the decoded attributes are the encoded scene's, quantized
+          "mean_abs_diff_to_eval": float(np.mean(
+              [np.abs(a - b).mean() for a, b in zip(d_frames, enc_frames)])),
+          "checks": d_checks, "ok": all(d_checks.values())})
+    if not all(d_checks.values()):
+        failed.append("decoded_orbit")
+
+    # 15. the kernels at the decoded frame's shapes
+    d_rows, d_ok = kernel_checks(decoded, cams[0], cfg,
+                                 d_stats[0]["visible_capacity"],
+                                 d_stats[0]["pair_capacity"], mode="decoded")
+    for r in d_rows:
+        emit({"phase": "kernel", "at": "decoded_frame", "card": card, **r})
+    failed += [f"{name} (decoded frame)" for name, good in d_ok.items()
+               if not good]
+
+    # 16. the tile path against the dense golden blend
+    golden, golden_ok = golden_check(64)
+    emit({"phase": "golden", "card": card, **golden, "ok": golden_ok})
+    if not golden_ok:
+        failed.append("golden")
+
+    # 17. capacity growth, then a phase-2 step and the kernels at the
+    # grown shape
+    trainer_g, cfg_g, views_g, g_summary, g_ok = growth_phase(
+        fresh, cams, frames, depths, voxel, counters)
+    emit({"phase": "growth", "card": card, **g_summary, "ok": g_ok})
+    if not g_ok:
+        failed.append("growth")
+    g_ref, g_ref_ok = phase2_grad_reference(trainer_g.model, 128, repo)
+    emit({"phase": "growth_grad_reference", **g_ref, "ok": g_ref_ok})
+    if not g_ref_ok:
+        failed.append("growth_grad_reference")
+    g_row, g_k2_ok, g_fwd_rows, g_fwd_ok = train_kernel_checks(
+        trainer_g, cfg_g, views_g, phase=2)
+    for r in g_fwd_rows + [g_row]:
+        emit({"phase": "kernel", "at": "growth_step", "card": card, **r})
+    failed += [f"{name} (grown)" for name, good in g_fwd_ok.items()
+               if not good]
+    if not g_k2_ok:
+        failed.append("blend_backward (grown)")
+
+    # 18. K1 and K2 at tiles 8, 12 and 16
+    tiles, tiles_ok = tile_checks(model_to(fresh, fresh.state.device),
+                                  cams[0], cfg)
+    emit({"phase": "tiles", "card": card, "tiles": tiles, "ok": tiles_ok})
+    if not tiles_ok:
+        failed.append("tiles")
+
+    # 19. phase-2 steps with the kernel against index_add_
+    ab, ab_ok = phase2_ab(trainer_s, views_s, counters)
+    emit({"phase": "phase2_ab", "card": card, **ab, "ok": ab_ok})
+    if not ab_ok:
+        failed.append("phase2_ab")
+
+    shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
-    for r, t, u in zip(rows, fwd_rows, s_fwd_rows):
-        r["train_shape"] = {k: t[k] for k in train_keys}
-        r["schedule_shape"] = {k: u[k] for k in train_keys}
-    row["schedule_shape"] = {k: s_row[k] for k in train_keys}
-    rows.append(row)
-    # a kernel's launches are those of the three main paths: render,
-    # train and the schedule
+    for r, t, u, d, g in zip(rows, fwd_rows, s_fwd_rows, d_rows, g_fwd_rows):
+        r["train_shape"] = {k: t[k] for k in shape_keys}
+        r["schedule_shape"] = {k: u[k] for k in shape_keys}
+        r["decoded_shape"] = {k: d[k] for k in shape_keys}
+        r["growth_shape"] = {k: g[k] for k in shape_keys}
+    row["schedule_shape"] = {k: s_row[k] for k in shape_keys}
+    row["growth_shape"] = {k: g_row[k] for k in shape_keys}
+    rows += [row, hg_row]
+    # a kernel's launches are those of the main paths: render, train, the
+    # schedule, the decoded orbit and the growth run
+    paths = {"render": launches, "train": summary["launches"],
+             "schedule": s_summary["launches"], "decoded": d_launches,
+             "growth": g_summary["launches"]}
     for r in rows:
-        r["launches_render"] = launches[r["name"]]
-        r["launches_train"] = summary["launches"][r["name"]]
-        r["launches_schedule"] = s_summary["launches"][r["name"]]
-        r["launches"] = (r["launches_render"] + r["launches_train"]
-                         + r["launches_schedule"])
+        for path, counts in paths.items():
+            r[f"launches_{path}"] = counts[r["name"]]
+        r["launches"] = sum(r[f"launches_{p}"] for p in paths)
+    failed += [f"{r['name']} (never launched)" for r in rows
+               if r["launches"] == 0]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_render", "launches_train", "launches_schedule",
+            *(f"launches_{p}" for p in paths),
             "block", "dynamic_smem_bytes", "static_smem_bytes", "registers",
-            "spill_bytes", "train_shape", "schedule_shape")
+            "spill_bytes", "train_shape", "schedule_shape", "decoded_shape",
+            "growth_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:

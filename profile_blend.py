@@ -31,6 +31,16 @@ line:
    cull off (no atab), which isolates the cost of its float arithmetic,
    and an empty launch (``torch.cuda._sleep(0)``), the floor of a timed
    launch.
+
+    python3 profile_blend.py --against DIR
+
+also builds K1 and K2 from another checkout's sources
+(``DIR/bloomscene_tpu_torch/csrc/blend.cu`` and ``blend_bwd.cu``, for
+example the parent commit unpacked with ``git archive``) and prints 4.
+``ab``: on the same render and training inputs, the other build and this
+one timed in turns (other, this, this, other, twice), each turn the mean
+of 50 launches behind a device-side wait (``chip_smoke.time_ms``), and
+whether the two builds' outputs are bitwise equal.
 """
 from __future__ import annotations
 
@@ -364,7 +374,66 @@ def main() -> int:
                   lambda: expand_slab(asT, t_start_p, cap))})
     emit({"phase": "time", "kernel": "empty launch", "card": card,
           **timed_with_clocks(lambda: torch.cuda._sleep(0))})
+
+    # 4. the other checkout's K1 and K2 against this one's
+    if "--against" in sys.argv:
+        other = against_libraries(sys.argv[sys.argv.index("--against") + 1])
+        calls = {
+            ("blend_forward", "render"): lambda: blend_forward(
+                bins_r.slab, counts_r, bins_r.perm, tile, gx),
+            ("blend_forward", "train"): lambda: blend_forward(
+                bt.slab, counts_t, bt.perm, tile, gx),
+            ("blend_backward", "train"): lambda: blend_backward(*k2_args)}
+        for (kernel, shape), fn in calls.items():
+            lib = "blend" if kernel == "blend_forward" else "blend_bwd"
+            ms = {"other": [], "this": []}
+            outs = {}
+            for arm in ("other", "this", "this", "other") * 2:
+                with swapped(lib, other[lib] if arm == "other" else None):
+                    outs[arm] = fn()
+                    ms[arm].append(cs.time_ms(fn, 50))
+            same = all(torch.equal(a, b) for a, b in zip(
+                outs["other"] if kernel == "blend_forward"
+                else [outs["other"]],
+                outs["this"] if kernel == "blend_forward"
+                else [outs["this"]]))
+            emit({"phase": "ab", "kernel": kernel, "shape": shape,
+                  "tile": tile, "card": card, "other_ms": ms["other"],
+                  "this_ms": ms["this"], "bitwise_equal": same})
     return 0
+
+
+def against_libraries(src_dir: str) -> dict:
+    """K1's and K2's libraries built from ``src_dir``'s sources (the same
+    flags as this checkout's), loaded under other names."""
+    import ctypes
+    from bloomscene_tpu_torch.ops.cuda import build
+    libs = {}
+    for name in ("blend", "blend_bwd"):
+        src = os.path.join(src_dir, "bloomscene_tpu_torch", "csrc",
+                           f"{name}.cu")
+        out = build.BUILD_DIR / f"libbs_{name}_against.so"
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                        src], check=True, capture_output=True)
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+class swapped:
+    """Within the block, the wrappers' library ``name`` is ``lib`` (this
+    checkout's own when None)."""
+
+    def __init__(self, name: str, lib):
+        from bloomscene_tpu_torch.ops.cuda import build
+        self.build, self.name, self.lib = build, name, lib
+
+    def __enter__(self):
+        self.own = self.build.library(self.name)
+        if self.lib is not None:
+            self.build._loaded[self.name] = self.lib
+
+    def __exit__(self, *exc):
+        self.build._loaded[self.name] = self.own
 
 
 if __name__ == "__main__":

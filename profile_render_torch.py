@@ -2,7 +2,7 @@
 """Where a frame's time, or a training step's, goes on the PyTorch port, on
 one card.
 
-    python3 profile_render_torch.py [--frames 8]
+    python3 profile_render_torch.py [--frames 8] [--decoded]
     python3 profile_render_torch.py --train 10 [--phase 2]
 
 Builds the scene of ``chip_smoke.py`` (~111K anchors, GSConfig defaults,
@@ -16,6 +16,11 @@ each frame:
    tile sort, K4) and blend (K1 and the image assembly);
 2. under ``torch.profiler``: the device time by kernel name, the number of
    kernel launches per frame and the device's busy share of the window.
+
+``--decoded``: the scene goes through the codec first (``encode_scene``
+into ``outputs/profile_render_torch``, ``decode_scene`` onto the card)
+and the frames render in ``mode='decoded'``, the serving path of a
+compressed scene (no hash-grid context, no quantization in the decode).
 
 ``--train N``: the training phase of ``chip_smoke.py`` (the perturbed
 model, ``GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)``, the 8
@@ -159,6 +164,8 @@ def main() -> int:
                     help="profile STEPS training steps instead of frames")
     ap.add_argument("--phase", type=int, default=0, choices=(0, 1, 2),
                     help="the training phase of the profiled steps")
+    ap.add_argument("--decoded", action="store_true",
+                    help="profile the decoded scene's frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render_torch: needs a CUDA card", file=sys.stderr)
@@ -184,6 +191,15 @@ def main() -> int:
     cfg = GSConfig(voxel_size=0.03)
     model, _ = cs.trained_scale_model(cs.room_points(cs.N_POINTS, cs.SEED),
                                       cfg, cs.SEED, "cuda")
+    mode = "eval"
+    if args.decoded:
+        from bloomscene_tpu_torch.codec.codec import (decode_scene,
+                                                      encode_scene)
+        path = os.path.join(repo, "outputs", "profile_render_torch")
+        sizes = encode_scene(model, cfg, path)
+        model, mode = decode_scene(model, cfg, path, device="cuda"), "decoded"
+        print(json.dumps({"codec_total_MB": sizes["total_MB"],
+                          "n_anchors": sizes["n_anchors"]}), flush=True)
     cams = cs.orbit_cameras(args.frames, 512, 512, repo)
     intr = cams[0].intrinsics
     arrs = [c.device_arrays("cuda") for c in cams]
@@ -196,16 +212,16 @@ def main() -> int:
     mv = max(int(prefilter_anchors(model, intr, a).sum()) for a in arrs)
     g = EVAL_VCAP_GRANULE
     vcap = min(-(-max(mv, g // 32) // g) * g, C)
-    mp = max(int(count_pairs(model, intr, a, cfg, mode="eval",
+    mp = max(int(count_pairs(model, intr, a, cfg, mode=mode,
                              visible=prefilter_anchors(model, intr, a),
                              visible_capacity=vcap)) for a in arrs)
     pcap = max(16384, -(-int(mp * 1.02) // 16384) * 16384)
-    print(json.dumps({"anchors": model.state.num_alive(), "capacity": C,
-                      "visible_capacity": vcap, "pair_capacity": pcap}),
-          flush=True)
+    print(json.dumps({"mode": mode, "anchors": model.state.num_alive(),
+                      "capacity": C, "visible_capacity": vcap,
+                      "pair_capacity": pcap}), flush=True)
 
     def frame(a):
-        return render(model, intr, a, cfg, mode="eval",
+        return render(model, intr, a, cfg, mode=mode,
                       visible=prefilter_anchors(model, intr, a),
                       visible_capacity=vcap, pair_capacity=pcap,
                       packed_capacity=pcap)
@@ -232,7 +248,7 @@ def main() -> int:
                 compact_visible(model, vis, vcap)[0],
                 attribute_means(model.state)))
             dec, _ = timed("decode", lambda: decode_neural_gaussians(
-                sub, a.camera_center, cfg, mode="eval", attr_means=means))
+                sub, a.camera_center, cfg, mode=mode, attr_means=means))
             proj = timed("project", lambda: _project(
                 dec.xyz, dec.scaling, dec.rotation, intr, a))
             proj = proj._replace(valid=proj.valid & dec.valid)
@@ -246,7 +262,8 @@ def main() -> int:
                 torch.zeros(3, device="cuda"), bins, tile, gx, gy, W, H))
             stages.setdefault("frame", []).append(
                 (time.perf_counter() - t_frame) * 1e3)
-    print(json.dumps({"stage_ms_mean": {k: sum(v) / len(v)
+    print(json.dumps({"mode": mode,
+                      "stage_ms_mean": {k: sum(v) / len(v)
                                         for k, v in stages.items()},
                       "stage_ms": stages, "card": card}), flush=True)
 
@@ -264,7 +281,8 @@ def main() -> int:
     n_launch = sum(k["calls"] for k in kernels)
     device_ms = sum(k["device_us"] for k in kernels) / 1e3
     print(json.dumps({
-        "frames": len(arrs), "wall_ms_per_frame": wall_ms / len(arrs),
+        "mode": mode, "frames": len(arrs),
+        "wall_ms_per_frame": wall_ms / len(arrs),
         "device_ms_per_frame": device_ms / len(arrs),
         "device_busy_share": device_ms / wall_ms,
         "kernel_launches_per_frame": n_launch / len(arrs),

@@ -16,6 +16,12 @@ edge cases with the rtol applied to the summed magnitudes of each entry's
 pixel terms (the rounding of a sum in another order); bitwise equal to
 itself from one launch to the next.
 
+hashgrid_bwd (the hash grid's backward, no TPU counterpart): bitwise
+against ``chunked_segment_sum``, a numpy twin of its algorithm, on the
+card; the twin within 1e-6 of each cell's summed magnitudes of a float64
+``index_add_`` on the CPU; bitwise equal to itself from one launch to the
+next.
+
 ``blend_case`` builds the edge cases' slabs; tests/test_torch_blend_edges.py
 holds the plain versions against the JAX package on the same cases.
 ``pairs_case`` and ``slab_case`` build K3's and K4's edge cases: the
@@ -64,7 +70,8 @@ def blend_case(case: str, tile: int, seed: int = 0):
     for p in range(T):
         ox = (tid[p] % CASE_GX) * tile
         oy = (tid[p] // CASE_GX) * tile
-        sig = rng.uniform(1.0, tile / 2, (cap, 2))
+        # axes 1 to tile/2 pixels (tile/2 to 1 below tile 2)
+        sig = rng.uniform(min(1.0, tile / 2), max(1.0, tile / 2), (cap, 2))
         mx = rng.uniform(ox - 2, ox + tile + 2, cap)
         my = rng.uniform(oy - 2, oy + tile + 2, cap)
         op = rng.uniform(0.05, 0.95, cap)
@@ -177,6 +184,123 @@ def slab_case(case: str, seed: int = 0):
             torch.from_numpy(starts.astype(np.int32)), cap)
 
 
+HASHGRID_CASES = ('random', 'dead_run', 'chunk_edges', 'one_cell', 'short')
+
+
+def hashgrid_case(case: str, seed: int = 0):
+    """The hash grid backward's inputs: cotangent rows [M, 4] float32 and
+    their cells idx [M] int64 in [0, n_cells), in entry order.
+
+    - random: 40,000 entries over 4,096 cells;
+    - dead_run: 28,244 entries on one cell (every dead anchor of a
+      training step sits in one cell of each level) among 20,000 random
+      ones, shuffled;
+    - chunk_edges: runs of 1, 63, 64, 65, 127, 128, 129 and 640 entries
+      back to back, so runs start and end on and beside the kernel's
+      chunk boundaries, then shuffled;
+    - one_cell: 5,000 entries on one cell (the list is one run);
+    - short: 5 entries, fewer than one chunk."""
+    rng = np.random.default_rng(seed)
+    n_cells = 4096
+    if case == 'random':
+        idx = rng.integers(0, n_cells, 40000)
+    elif case == 'dead_run':
+        idx = np.concatenate([np.full(28244, 17),
+                              rng.integers(0, n_cells, 20000)])
+    elif case == 'chunk_edges':
+        lengths = (1, 63, 64, 65, 127, 128, 129, 640)
+        idx = np.repeat(rng.choice(n_cells, len(lengths), replace=False),
+                        lengths)
+    elif case == 'one_cell':
+        idx = np.full(5000, 4095)
+    else:
+        idx = rng.integers(0, n_cells, 5)
+    idx = rng.permutation(idx)
+    rows = rng.normal(size=(idx.size, 4)).astype(np.float32)
+    return torch.from_numpy(rows), torch.from_numpy(idx.astype(np.int64)), \
+        n_cells
+
+
+def chunked_segment_sum(rows: np.ndarray, idx: np.ndarray, n_cells: int,
+                        chunk: int) -> np.ndarray:
+    """numpy twin of csrc/hashgrid_bwd.cu, in float32 and in its order:
+    entries sorted stably by cell; pass 1 adds each run inside a chunk of
+    ``chunk`` sorted entries in list order, pass 2 adds the pieces of a
+    run that spans chunks in chunk order."""
+    order = np.argsort(idx, kind='stable')
+    keys, vals = idx[order], rows[order]
+    M = keys.size
+    out = np.zeros((n_cells, rows.shape[1]), np.float32)
+    pieces = {}                 # cell -> partial sums of a spanning run
+    for lo in range(0, M, chunk):
+        hi = min(lo + chunk, M)
+        i = lo
+        while i < hi:
+            j = i
+            acc = np.zeros(rows.shape[1], np.float32)
+            while j < hi and keys[j] == keys[i]:
+                acc = acc + vals[j]
+                j += 1
+            begins = i > lo or lo == 0 or keys[lo - 1] != keys[lo]
+            ends = j < hi or hi == M or keys[hi] != keys[hi - 1]
+            if begins and ends:
+                out[keys[i]] = acc
+            else:
+                pieces.setdefault(keys[i], []).append(acc)
+            i = j
+    for cell, parts in pieces.items():
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        out[cell] = acc
+    return out
+
+
+@pytest.mark.parametrize('case', HASHGRID_CASES)
+def test_hashgrid_bwd_algorithm_matches_index_add(case):
+    """The hash grid backward's algorithm (its numpy twin) against a
+    float64 index_add_: within 1e-6 of each cell's summed magnitudes (the
+    rounding of float32 sums in another order), untouched cells exactly
+    0; the CPU wrapper is index_add_ itself."""
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import (CHUNK,
+                                                            grid_scatter)
+    rows, idx, n_cells = hashgrid_case(case)
+    got = chunked_segment_sum(rows.numpy(), idx.numpy(), n_cells, CHUNK)
+    ref = torch.zeros((n_cells, 4), dtype=torch.float64).index_add_(
+        0, idx, rows.double()).numpy()
+    mag = torch.zeros((n_cells, 4), dtype=torch.float64).index_add_(
+        0, idx, rows.double().abs()).numpy()
+    assert np.all(np.abs(got - ref) <= 1e-6 * mag)
+    assert np.all(got[mag == 0] == 0)
+    plain = grid_scatter(rows, idx, n_cells)
+    assert torch.equal(plain, torch.zeros((n_cells, 4)).index_add_(
+        0, idx, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', HASHGRID_CASES)
+def test_hashgrid_bwd_kernel(case):
+    """hashgrid_bwd bitwise against its numpy twin (same float32 adds in
+    the same order), within 2e-6 of the summed magnitudes of its plain
+    version (index_add_'s atomic float32 sums round too), and bitwise
+    equal to itself across two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import (
+        CHUNK, grid_scatter, grid_scatter_plain)
+    rows, idx, n_cells = hashgrid_case(case)
+    dev = torch.device('cuda')
+    got = grid_scatter(rows.to(dev), idx.to(dev), n_cells)
+    again = grid_scatter(rows.to(dev), idx.to(dev), n_cells)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    twin = chunked_segment_sum(rows.numpy(), idx.numpy(), n_cells, CHUNK)
+    assert np.array_equal(got.cpu().numpy(), twin)
+    plain = grid_scatter_plain(rows.to(dev), idx.to(dev), n_cells).cpu()
+    mag = grid_scatter_plain(rows.abs(), idx, n_cells)
+    assert bool(((got.cpu() - plain).abs() <= 2e-6 * mag).all())
+
+
 def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
     """No fallback: with no kernel library and no nvcc, building raises."""
     monkeypatch.setattr(build, 'BUILD_DIR', tmp_path)
@@ -188,16 +312,18 @@ def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('kernel,tile,error', [
-    ('forward', 6, ValueError), ('forward', 12, ValueError),
-    ('forward', 40, ValueError), ('backward', 4, ValueError),
-    ('forward', 8, RuntimeError), ('backward', 24, RuntimeError)])
+    ('forward', 0, ValueError), ('forward', 33, ValueError),
+    ('backward', 40, ValueError), ('forward', 5, RuntimeError),
+    ('forward', 12, RuntimeError), ('backward', 1, RuntimeError),
+    ('backward', 20, RuntimeError), ('forward', 8, RuntimeError),
+    ('backward', 24, RuntimeError)])
 def test_blend_wrappers_check_tiles(tmp_path, monkeypatch, kernel, tile,
                                     error):
-    """A block of either blend kernel is one tile of two-pixel threads in
-    whole warps: tile*tile a multiple of 64, at most 1024. Tensors off the
-    CPU go to the kernel (here on the meta device, which has shapes and no
-    memory): an unfit tile raises before anything is built, a fitting one
-    reaches the build, which raises without nvcc (no fallback)."""
+    """Either blend kernel takes any tile from 1 to 32 (a block of two-pixel
+    threads, rounded up to whole warps). Tensors off the CPU go to the
+    kernel (here on the meta device, which has shapes and no memory): a
+    tile outside 1-32 raises before anything is built, any other reaches
+    the build, which raises without nvcc (no fallback)."""
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
                                                      blend_forward)
     monkeypatch.setattr(build, 'BUILD_DIR', tmp_path)
@@ -208,7 +334,7 @@ def test_blend_wrappers_check_tiles(tmp_path, monkeypatch, kernel, tile,
     T, P = 4, tile * tile
     slab = torch.empty((10, 8, T), device=dev)
     ints = torch.empty(T, dtype=torch.int32, device=dev)
-    with pytest.raises(error, match='multiple of 64' if error is ValueError
+    with pytest.raises(error, match='tiles 1 to 32' if error is ValueError
                        else 'nvcc not found'):
         if kernel == 'forward':
             blend_forward(slab, ints, ints, tile, 2)
@@ -290,13 +416,18 @@ def test_kernels_match_plain(rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize('case,tile', [(c, 16) for c in BLEND_CASES]
                          + [('mixed', 8), ('full_column', 8), ('mixed', 24),
-                            ('mixed', 32), ('full_column', 32)])
+                            ('mixed', 32), ('full_column', 32)]
+                         + [(c, t) for t in (1, 4, 5, 12, 20)
+                            for c in ('mixed', 'full_column', 'early_stop')])
 def test_blend_kernels_edge_cases(case, tile):
     """K1 bitwise and K2 within the rounding of its pixel sums, against
     their plain versions, at the edges of the kernels' slot batches and at
     tiles 8 (a one-warp block), 24 (nine warps, K2 just under 48 KB of
-    shared memory) and 32 (K2 above 48 KB) beside 16; K2 twice, bitwise,
-    with every row at or past a tile's walk zero."""
+    shared memory) and 32 (K2 above 48 KB) beside 16, and at tiles whose
+    pixel count is no multiple of 64, so the last warp holds inactive
+    lanes: 1 (one pixel), 4 and 12 (even), 5 (odd: a thread's two pixels
+    straddle two rows) and 20; K2 twice, bitwise, with every row at or
+    past a tile's walk zero."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,

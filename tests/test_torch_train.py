@@ -562,6 +562,30 @@ def test_trainer_runs_the_whole_schedule(small_models):
     assert tr.model.state.capacity == dens[-1]['densify_capacity']
 
 
+@pytest.mark.parametrize('seed', [0, 7])
+def test_camera_stream_apart_from_surgery_stream(small_models, seed):
+    """The Trainer's camera draws come from a stream spawned from the seed,
+    apart from the surgery's: ``densify_rng`` stays bitwise the JAX
+    trainer's ``np_rng`` (``default_rng(seed)``), and the camera stream
+    is another sequence."""
+    m, vs = small_models
+    cfg = GSConfig(**STEP_CFG)
+    cam = camera_from_rt(np.eye(3), np.zeros(3), 1.0, 1.0, 32, 32)
+    tm = model_from_jax_params(jax.tree.map(np.asarray, m), cfg,
+                               device='cpu')
+    tr = Trainer(tm, cfg, cam.intrinsics, vs, seed=seed, device='cpu')
+    jax_np_rng = np.random.default_rng(seed)
+    np.testing.assert_array_equal(tr.densify_rng.random(64),
+                                  jax_np_rng.random(64))
+    cams = tr.rng.integers(8, size=256)
+    same_seed = np.random.default_rng(seed).integers(8, size=256)
+    assert not np.array_equal(cams, same_seed)
+    assert tr.rng.bit_generator.state != tr.densify_rng.bit_generator.state
+    np.testing.assert_array_equal(
+        cams, np.random.default_rng(np.random.SeedSequence(seed).spawn(1)[0])
+        .integers(8, size=256))
+
+
 def test_fit_single_view_improves_the_render():
     r = fit_single_view.fit(steps=20, res=RES, n_points=250, device='cpu',
                             log_every=5)
