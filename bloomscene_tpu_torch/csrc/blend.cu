@@ -41,14 +41,20 @@
 // Blocks are per tile, so the TPU's 128-tile lane groups, occupancy-sorted
 // group maxima and unrolled chains have no counterpart here.
 //
-// Any tile from 1 to 32: a block is ceil(tile*tile / 2) threads rounded up
-// to whole warps. Where tile*tile is a multiple of 64 (tiles 8, 16, 24,
-// 32) every lane holds two pixels of one row and the kernel is built as
-// above (GENERAL = false). Otherwise (GENERAL = true) each pixel takes its
-// own row and dy (at an odd tile a thread's two pixels may straddle two
-// rows), and a lane past the tile's pixels starts stopped: it stages and
-// derives its share of each batch and meets every barrier, but walks no
-// splat and writes nothing.
+// Any tile. From 1 to 32 a block is ceil(tile*tile / 2) threads rounded up
+// to whole warps and takes the whole tile. Where tile*tile is a multiple of
+// 64 (tiles 8, 16, 24, 32) every lane holds two pixels of one row and the
+// kernel is built as above (GENERAL = false). Otherwise (GENERAL = true)
+// each pixel takes its own row and dy (at an odd tile a thread's two pixels
+// may straddle two rows), and a lane past the tile's pixels starts stopped:
+// it stages and derives its share of each batch and meets every barrier,
+// but walks no splat and writes nothing.
+// Above 32 (SPLIT = true) a tile is cut into S = ceil(P / 1024) blocks of
+// PB pixels each (ceil(P / S) rounded up to 64, at most 1,024: 512
+// threads), blockIdx.y taking the contiguous pixels [y PB, y PB + PB).
+// Pixels are independent in the forward, so each block walks the tile's
+// splats for its own pixels only; GENERAL as above where the tile is odd
+// or the last block is short.
 //
 // Bitwise equal to the plain version: built with --fmad=false, and each
 // pixel's arithmetic is the plain version's in its order (a contracted FMA
@@ -66,7 +72,7 @@ constexpr int BATCH = 64;           // slots per staged batch
 constexpr int REC = 12;             // floats per derived splat record
 constexpr int PIX = 2;              // pixels per thread
 constexpr int MAX_THREADS = 512;    // tile 32: 1,024 pixels
-constexpr int MAX_TILE = 32;
+constexpr int ONE_BLOCK_TILE = 32;  // the largest tile one block takes
 // the JAX package's constants (ops/reference_rasterizer.py), rounded from
 // double to float as a float32 comparison with a Python float rounds them
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
@@ -91,7 +97,7 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-template <bool GENERAL>
+template <bool GENERAL, bool SPLIT>
 __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
     const float* __restrict__ slab, const int* __restrict__ counts_p,
     const int* __restrict__ tid, int cap, int num_tiles, int tile, int gx,
@@ -130,9 +136,11 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
     }
   };
 
-  // the thread's pixels: sp = 2 th and 2 th + 1, adjacent columns of one
-  // row unless GENERAL; a pixel past the tile's P is inactive
-  const int sp0 = PIX * th, sp1 = sp0 + 1;
+  // the thread's pixels: sp = 2 th and 2 th + 1 (past the block's first
+  // pixel when SPLIT), adjacent columns of one row unless GENERAL; a pixel
+  // past the tile's P is inactive
+  const int sp0 = (SPLIT ? PIX * blockDim.x * blockIdx.y : 0) + PIX * th;
+  const int sp1 = sp0 + 1;
   const bool act0 = !GENERAL || sp0 < P, act1 = !GENERAL || sp1 < P;
   const float px0 = (float)((t % gx) * tile + sp0 % tile);
   const float py0 = (float)((t / gx) * tile + sp0 / tile);
@@ -217,7 +225,7 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
 #pragma unroll
   for (int e = 0; e < PIX; ++e) {
     if (!act[e]) continue;
-    const long long o = (long long)(PIX * th + e) * num_tiles + p;
+    const long long o = (long long)(sp0 + e) * num_tiles + p;
 #pragma unroll
     for (int c = 0; c < 6; ++c) planes[c * plane + o] = out[e][c];
     ncon_out[o] = ncs[e];
@@ -226,12 +234,21 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
 
 }  // namespace
 
-// Block shape of a tile: threads (whole warps) and dynamic shared memory
-// bytes (none: the buffers are static); nonzero for a tile outside 1-32.
-extern "C" int bs_blend_forward_shape(int tile, int* threads, int* smem) {
-  if (tile < 1 || tile > MAX_TILE) return (int)cudaErrorInvalidValue;
-  *threads = (tile * tile + PIX * 32 - 1) / (PIX * 32) * 32;
+// Block shape of a tile: threads (whole warps), dynamic shared memory
+// bytes (none: the buffers are static) and the blocks a tile is split
+// into; nonzero for a tile below 1.
+extern "C" int bs_blend_forward_shape(int tile, int* threads, int* smem,
+                                      int* splits) {
+  if (tile < 1 || tile > 46340) return (int)cudaErrorInvalidValue;
+  const int P = tile * tile;
+  int pb = (P + PIX * 32 - 1) / (PIX * 32) * (PIX * 32);  // whole warps
+  if (tile > ONE_BLOCK_TILE) {
+    const int s = (P + PIX * MAX_THREADS - 1) / (PIX * MAX_THREADS);
+    pb = ((P + s - 1) / s + PIX * 32 - 1) / (PIX * 32) * (PIX * 32);
+  }
+  *threads = pb / PIX;
   *smem = 0;
+  *splits = (P + pb - 1) / pb;
   return 0;
 }
 
@@ -239,13 +256,19 @@ extern "C" int bs_blend_forward(const float* slab, const int* counts_p,
                                 const int* tid, int cap, int num_tiles,
                                 int tile, int gx, float* planes,
                                 int* ncon_out, void* stream) {
-  int threads, smem;
-  const int err = bs_blend_forward_shape(tile, &threads, &smem);
+  int threads, smem, splits;
+  const int err = bs_blend_forward_shape(tile, &threads, &smem, &splits);
   if (err) return err;
   if (num_tiles > 0) {
-    const auto kernel = tile * tile % (PIX * 32) ? blend_fwd_kernel<true>
-                                                 : blend_fwd_kernel<false>;
-    kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
+    const int P = tile * tile;
+    const bool general = P % (PIX * threads) != 0 || tile % 2 != 0;
+    const auto kernel =
+        tile > ONE_BLOCK_TILE
+            ? (general ? blend_fwd_kernel<true, true>
+                       : blend_fwd_kernel<false, true>)
+            : (general ? blend_fwd_kernel<true, false>
+                       : blend_fwd_kernel<false, false>);
+    kernel<<<dim3(num_tiles, splits), threads, smem, (cudaStream_t)stream>>>(
         slab, counts_p, tid, cap, num_tiles, tile, gx, planes, ncon_out);
   }
   return (int)cudaGetLastError();

@@ -54,14 +54,24 @@
 // Every sum has a fixed order, so two runs give the same bits (the only
 // atomic is the integer max of n_contrib).
 //
-// Any tile from 1 to 32: a block is ceil(tile*tile / 2) threads rounded up
-// to whole warps. Where tile*tile is a multiple of 64 (tiles 8, 16, 24,
-// 32) every lane holds two pixels of one row and the kernel is built as
-// above (GENERAL = false). Otherwise (GENERAL = true) each pixel takes its
-// own row and dy, and a pixel past the tile's P is inactive: it reads no
-// input (n_contrib 0, T 1, cotangents 0), never blends, and its terms are
-// set to exact zeros, so the lanes that pad the last warp take part in
-// every shuffle and partial sum with zeros only.
+// Any tile. From 1 to 32 a block is ceil(tile*tile / 2) threads rounded up
+// to whole warps and takes the whole tile. Where tile*tile is a multiple of
+// 64 (tiles 8, 16, 24, 32) every lane holds two pixels of one row and the
+// kernel is built as above (GENERAL = false). Otherwise (GENERAL = true)
+// each pixel takes its own row and dy, and a pixel past the tile's P is
+// inactive: it reads no input (n_contrib 0, T 1, cotangents 0), never
+// blends, and its terms are set to exact zeros, so the lanes that pad the
+// last warp take part in every shuffle and partial sum with zeros only.
+// Above 32 (SPLIT = true) a tile is cut as K1 cuts it (csrc/blend.cu):
+// S = ceil(P / 1024) blocks of at most 1,024 pixels (512 threads, the
+// tile-32 block, 84,736 bytes of shared memory), blockIdx.y taking a
+// contiguous range of the tile's pixels. Every block reads the whole
+// tile's n_contrib for the walk, so all S walk the same slots. A slot's
+// sums span the S blocks, so a block writes its ten per-slot channel sums
+// (before the channel algebra) to a scratch buffer [S, 10, cap, T], and a
+// second kernel adds the S partials of each (slot, position) in block
+// order and applies the algebra. No float atomics: the same bits every
+// launch.
 //
 // Built with --fmad=false, and every per-pixel expression keeps the order
 // of the plain version (ops/cuda/blend.py::blend_backward_plain), so the
@@ -80,7 +90,7 @@ constexpr int REC = 12;            // floats per staged slot: the 10 rows,
 constexpr int STAGE = B * REC;     // floats per staged batch
 constexpr int PART_STRIDE = B * GRAD_W + 1;  // per partial, padded
 constexpr int MAX_THREADS = 512;   // tile 32: 1,024 pixels, two a thread
-constexpr int MAX_TILE = 32;
+constexpr int ONE_BLOCK_TILE = 32;  // the largest tile one block takes
 constexpr int MAX_LOADS = (DATA_W * B + 31) / 32;  // staging loads a thread
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float ALPHA_MAX = (float)0.99;
@@ -106,7 +116,7 @@ __device__ __forceinline__ void exchange(float* out, const float* a,
   }
 }
 
-template <bool GENERAL>
+template <bool GENERAL, bool SPLIT>
 __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
     const float* __restrict__ slab, const int* __restrict__ counts_p,
     const int* __restrict__ tid, const float* __restrict__ final_T,
@@ -114,7 +124,8 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
     const float* __restrict__ u_g, const float* __restrict__ u_b,
     const float* __restrict__ u_d, const float* __restrict__ u_one,
     const float* __restrict__ bg_term, int cap, int num_tiles, int tile,
-    int gx, float* __restrict__ grad) {
+    int gx, float* __restrict__ grad, float* __restrict__ split_part,
+    int* __restrict__ split_walk) {
   extern __shared__ __align__(16) float dyn[];
   float* stage = dyn;               // [3][B][REC]: batches k-1, k, k+1
   float* part = dyn + 3 * STAGE;    // [2][n_part][PART_STRIDE]
@@ -126,10 +137,12 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
   const int n_part = (n_threads >> 5) * 4;
   const int t = tid[p];
 
-  // the thread's pixels: sp = 2 th and 2 th + 1, adjacent columns of one
-  // row unless GENERAL; a pixel past the tile's P is inactive
+  // the thread's pixels: sp = 2 th and 2 th + 1 (past the block's first
+  // pixel when SPLIT), adjacent columns of one row unless GENERAL; a pixel
+  // past the tile's P is inactive
   const int P = tile * tile;
-  const int sp0 = 2 * th, sp1 = sp0 + 1;
+  const int sp0 = (SPLIT ? 2 * n_threads * (int)blockIdx.y : 0) + 2 * th;
+  const int sp1 = sp0 + 1;
   const bool act0 = !GENERAL || sp0 < P, act1 = !GENERAL || sp1 < P;
   const float px0 = (float)((t % gx) * tile + sp0 % tile);
   const float py0 = (float)((t / gx) * tile + sp0 / tile);
@@ -157,9 +170,18 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
 
   if (th == 0) walk_sh = 0;
   __syncthreads();
-  atomicMax(&walk_sh, max(nc0, nc1));  // integer max: any order
+  if (SPLIT) {
+    // the whole tile's n_contrib, so that every block walks the same slots
+    int m = 0;
+    for (int i = th; i < P; i += n_threads)
+      m = max(m, ncon[(long long)i * num_tiles + p]);
+    atomicMax(&walk_sh, m);  // integer max: any order
+  } else {
+    atomicMax(&walk_sh, max(nc0, nc1));  // integer max: any order
+  }
   __syncthreads();
   const int walk = min(counts_p[p], walk_sh);
+  if (SPLIT && blockIdx.y == 0 && th == 0) split_walk[p] = walk;
   const int n_batch = (walk + B - 1) / B;
   // slot j of batch k is s = walk - 1 - k B - j; s < 0 pads the last batch
 
@@ -201,6 +223,12 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
           r += pt[q * PART_STRIDE + j * GRAD_W + c];
         return r;
       };
+      if (SPLIT) {
+        // this block's sum of channel ``row``; split_sums adds the blocks
+        split_part[(((long long)blockIdx.y * GRAD_W + row) * cap + s) *
+                       num_tiles + p] = msum(row);
+        continue;
+      }
       const float* rec = st + j * REC;
       const float ca = rec[2], cb = rec[3], cc = rec[4], op = rec[5];
       float g;
@@ -345,39 +373,99 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
   }
 }
 
+// A split tile's gradient rows: the ten channel sums of each (slot s,
+// position p) below the walk, each added over the S blocks in block order,
+// then the channel algebra of the epilogue above.
+__global__ void __launch_bounds__(256) split_sums(
+    const float* __restrict__ slab, const float* __restrict__ split_part,
+    const int* __restrict__ split_walk, int splits, int cap, int num_tiles,
+    float* __restrict__ grad) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)cap * num_tiles) return;
+  const int s = (int)(i / num_tiles), p = (int)(i % num_tiles);
+  if (s >= split_walk[p]) return;
+  const long long plane = (long long)cap * num_tiles;
+  float m[GRAD_W];
+#pragma unroll
+  for (int c = 0; c < GRAD_W; ++c) {
+    float r = 0.0f;
+    for (int k = 0; k < splits; ++k)
+      r += split_part[((long long)k * GRAD_W + c) * plane + i];
+    m[c] = r;
+  }
+  const float ca = slab[2 * plane + i], cb = slab[3 * plane + i],
+              cc = slab[4 * plane + i], op = slab[5 * plane + i];
+  // the channel algebra of blend.py:448-459, as in the epilogue
+  const float g[GRAD_W] = {-op * (ca * m[1] + cb * m[2]),
+                           -op * (cc * m[2] + cb * m[1]),
+                           -0.5f * op * m[3],
+                           -op * m[4],
+                           -0.5f * op * m[5],
+                           m[0], m[6], m[7], m[8], m[9]};
+#pragma unroll
+  for (int c = 0; c < GRAD_W; ++c) grad[c * plane + i] = g[c];
+}
+
 }  // namespace
 
-// Block shape of a tile: threads (whole warps) and dynamic shared memory
-// bytes; nonzero for a tile outside 1-32.
-extern "C" int bs_blend_backward_shape(int tile, int* threads, int* smem) {
-  if (tile < 1 || tile > MAX_TILE) return (int)cudaErrorInvalidValue;
-  const int n = (tile * tile + 63) / 64 * 32;
+// Block shape of a tile: threads (whole warps), dynamic shared memory
+// bytes and the blocks a tile is split into (K1's cut); nonzero for a tile
+// below 1.
+extern "C" int bs_blend_backward_shape(int tile, int* threads, int* smem,
+                                       int* splits) {
+  if (tile < 1 || tile > 46340) return (int)cudaErrorInvalidValue;
+  const int P = tile * tile;
+  int pb = (P + 63) / 64 * 64;  // two pixels a thread, whole warps
+  if (tile > ONE_BLOCK_TILE) {
+    const int s = (P + 2 * MAX_THREADS - 1) / (2 * MAX_THREADS);
+    pb = ((P + s - 1) / s + 63) / 64 * 64;
+  }
+  const int n = pb / 2;
   *threads = n;
   *smem = (int)sizeof(float) * (3 * STAGE + 2 * (n / 32) * 4 * PART_STRIDE);
+  *splits = (P + pb - 1) / pb;
   return 0;
 }
 
+// split_part [S, 10, cap, T] float32 and split_walk [T] int32 are scratch
+// for a tile above 32 (S from bs_blend_backward_shape); null otherwise.
+// They come last, so a caller of the tile-1-32 form (no scratch) still
+// passes the stream where it was.
 extern "C" int bs_blend_backward(const float* slab, const int* counts_p,
                                  const int* tid, const float* final_T,
                                  const int* ncon, const float* u_r,
                                  const float* u_g, const float* u_b,
                                  const float* u_d, const float* u_one,
                                  const float* bg_term, int cap, int num_tiles,
-                                 int tile, int gx, float* grad, void* stream) {
-  int threads, smem;
-  const int err = bs_blend_backward_shape(tile, &threads, &smem);
+                                 int tile, int gx, float* grad,
+                                 void* stream, float* split_part,
+                                 int* split_walk) {
+  int threads, smem, splits;
+  const int err = bs_blend_backward_shape(tile, &threads, &smem, &splits);
   if (err) return err;
   if (num_tiles > 0) {
-    const auto kernel = tile * tile % 64 ? blend_bwd_kernel<true>
-                                         : blend_bwd_kernel<false>;
+    const int P = tile * tile;
+    const bool general = P % (2 * threads) != 0 || tile % 2 != 0;
+    const bool split = tile > ONE_BLOCK_TILE;
+    const auto kernel =
+        split ? (general ? blend_bwd_kernel<true, true>
+                         : blend_bwd_kernel<false, true>)
+              : (general ? blend_bwd_kernel<true, false>
+                         : blend_bwd_kernel<false, false>);
     // a block may take more than 48 KB of dynamic shared memory (84,736
     // bytes at tile 32) only when the kernel is allowed it
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (set != cudaSuccess) return (int)set;
-    kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
+    kernel<<<dim3(num_tiles, splits), threads, smem, (cudaStream_t)stream>>>(
         slab, counts_p, tid, final_T, ncon, u_r, u_g, u_b, u_d, u_one,
-        bg_term, cap, num_tiles, tile, gx, grad);
+        bg_term, cap, num_tiles, tile, gx, grad, split_part, split_walk);
+    if (split && cap > 0) {
+      const long long n_out = (long long)cap * num_tiles;
+      split_sums<<<(unsigned)((n_out + 255) / 256), 256, 0,
+                   (cudaStream_t)stream>>>(slab, split_part, split_walk,
+                                           splits, cap, num_tiles, grad);
+    }
   }
   return (int)cudaGetLastError();
 }

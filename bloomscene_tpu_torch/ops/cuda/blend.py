@@ -11,15 +11,14 @@ K2 replaces ``blend.py::_bwd_kernel``: the back-to-front walk from final T
 with the 5-carry suffix-sum recurrence, writing per-entry gradients
 [10, cap, T] (see ``csrc/blend_bwd.cu`` for the arithmetic).
 
-Both kernels run one block per tile position, two adjacent pixels a
-thread, and take any tile from 1 to MAX_TILE (see the sources' notes for
-the designs and for tiles whose pixel count is not a multiple of 64).
-The JAX package's blend takes any tile; above MAX_TILE a block would
-need more threads than the kernels are built for (``__launch_bounds__``
-of 512 keeps K2's state in registers), so the wrappers raise there. The
-plain versions run
-the same per-slot recurrences over all pixels of all tiles at once, as the
-TPU kernels do.
+Both kernels run two adjacent pixels a thread and take any tile, as the
+JAX package's blend does. Up to tile 32 a tile is one block; above it a
+tile is split into blocks of at most 1,024 pixels (512 threads, which
+``__launch_bounds__`` keeps K2's state in registers for), and K2 adds the
+blocks' per-slot sums in a second kernel, in block order (see the
+sources' notes for the designs and for tiles whose pixel count is not a
+multiple of 64). The plain versions run the same per-slot recurrences
+over all pixels of all tiles at once, as the TPU kernels do.
 """
 from __future__ import annotations
 
@@ -34,20 +33,32 @@ from .build import check, library, require, stream_ptr
 DATA_W = 10      # slab rows: mx, my, ca, cb, cc, op, depth, r, g, b
 GRAD_W = 10      # gradient rows: d mx, my, ca, cb, cc, op, depth, r, g, b
 
-# both kernels give each thread two adjacent pixels, at most 512 threads
-MAX_TILE = 32
-
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p] * 2)
+                 + [ctypes.c_void_p] * 4)   # grad, stream, split scratch
+_SHAPE_ARGTYPES = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
 
 
 def check_tile(tile: int) -> int:
-    """tile*tile, the pixels of one block of the blend kernels."""
-    if not 1 <= tile <= MAX_TILE:
-        raise ValueError(f"tile {tile}: the blend kernels take tiles 1 to "
-                         f"{MAX_TILE}")
+    """tile*tile, the pixels of one tile (an int32 count)."""
+    if tile < 1 or tile * tile >= 2 ** 31:
+        raise ValueError(f"tile {tile}: the blend kernels take tiles of 1 "
+                         f"pixel and up whose pixel count fits 31 bits")
     return tile * tile
+
+
+def launch_shape(name: str, tile: int) -> tuple[int, int, int]:
+    """(threads, dynamic shared memory bytes, blocks a tile) of the blend
+    kernel library ``name`` ("blend" or "blend_bwd") at ``tile``, as the
+    library computes them."""
+    fn = getattr(library(name), {"blend": "bs_blend_forward_shape",
+                                 "blend_bwd": "bs_blend_backward_shape"}[name])
+    fn.argtypes, fn.restype = _SHAPE_ARGTYPES, ctypes.c_int
+    # one block a tile unless the library says otherwise (a build of the
+    # tile-1-32 form writes no split count)
+    out = [ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(1)]
+    check(fn(tile, *(ctypes.byref(x) for x in out)), f"{name} shape")
+    return tuple(x.value for x in out)
 
 
 def blend_forward(slab: torch.Tensor, counts_p: torch.Tensor,
@@ -171,13 +182,21 @@ def blend_backward(slab: torch.Tensor, counts_p: torch.Tensor,
                         "bg_term"), planes):
         require(t, torch.float32, (P, T), name, dev)
     grad = torch.zeros((GRAD_W, cap, T), dtype=torch.float32, device=dev)
+    splits = launch_shape("blend_bwd", tile)[2]
+    # a split tile's per-block channel sums and walks (scratch)
+    part = (torch.empty((splits, GRAD_W, cap, T), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
+    walk = (torch.empty((T,), dtype=torch.int32, device=dev)
+            if splits > 1 else None)
     fn = library("blend_bwd").bs_blend_backward
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     check(fn(slab.data_ptr(), counts_p.data_ptr(), tid.data_ptr(),
              final_T.data_ptr(), ncon.data_ptr(), u_r.data_ptr(),
              u_g.data_ptr(), u_b.data_ptr(), u_d.data_ptr(),
              u_one.data_ptr(), bg_term.data_ptr(), cap, T, tile, gx,
-             grad.data_ptr(), stream_ptr(dev)), "blend_backward")
+             grad.data_ptr(), stream_ptr(dev),
+             None if part is None else part.data_ptr(),
+             None if walk is None else walk.data_ptr()), "blend_backward")
     blend_backward.launches += 1
     return grad
 

@@ -73,7 +73,9 @@ nonzero:
    (captured from the step's backward), against a float64 ``index_add_``
    within 1e-6 of each cell's summed magnitudes, against its plain version
    (``index_add_``, atomic), and bitwise equal to itself; times summed over
-   the step's four calls.
+   the step's four calls: the kernel with its sort's and its sum's shares,
+   ``index_add_`` atomic and in PyTorch's deterministic mode, and the
+   share of the bound.
 13. codec: ``estimate_final_bits``, ``encode_scene`` of the schedule's
    model and ``decode_scene`` with that model as the shell (as
    ``BloomScene.compress`` does): sizes by stream, the estimate, the wall
@@ -100,10 +102,12 @@ nonzero:
    must hold the model's live leaves, and one more step must change them;
    then, at the grown shape, a phase-2 step's gradients card against CPU
    (as phase 9) and K1-K4 on a phase-2 step's inputs (as phase 8).
-18. tiles: one orbit frame rendered at tiles 8, 12 and 16 (12 is no
-   multiple of 8: a block with a partial last warp); K1 bitwise and K2
-   within its magnitude tolerance of their plain versions, and their
-   times at each tile.
+18. tiles: one orbit frame rendered at tiles 8, 12, 16, 40 and 64 (12
+   and 40: a block with a partial last warp; 40 and 64: a tile split into
+   2 and 4 blocks, binned with TILE_CAPACITY slots a tile); the frame
+   finite, K1 bitwise and K2 within its magnitude tolerance of their plain
+   versions and bitwise across two launches; their times, block shapes and
+   splits at each tile, and the overflow counters.
 19. phase2_ab: the schedule's trainer goes on for 4 runs of 5 phase-2
    steps, with the hash grid's backward on the kernel, on ``index_add_``,
    on ``index_add_``, on the kernel: the step medians of both.
@@ -171,6 +175,11 @@ GOLDEN_GRAD_ATOL, GOLDEN_GRAD_RTOL = 2e-5, 2e-3
 GROWTH = dict(voxel_size=0.03, use_dpr=True, start_stat=0, iterations=20,
               update_from=10, update_interval=10, update_until=30)
 AB_STEPS = 5                   # phase-2 steps a run of phase 19
+# phase 18: the tiles of one frame (12 and 40: a partial last warp; 40 and
+# 64: split into blocks), and the slots a tile above 32 is binned with
+# (the default 1,024 x its area over tile 16's)
+TILES = (8, 12, 16, 40, 64)
+TILE_CAPACITY = {40: 6400, 64: 16384}
 
 
 def emit(obj: dict) -> None:
@@ -280,35 +289,54 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 def ptxas_report(log: str) -> dict:
     """Registers, static shared memory and spill bytes from the
-    ``nvcc -Xptxas -v`` output of one library (None where not printed)."""
+    ``nvcc -Xptxas -v`` output of one library (None where not printed):
+    the first kernel's registers and shared memory, the spills of all,
+    and for a library of several kernels each one's registers and spills
+    (``kernels``: name, registers, spill bytes, in ptxas's order)."""
     regs = re.search(r"Used (\d+) registers", log)
     smem = re.search(r"(\d+) bytes smem", log)
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                         log)
-    return {"registers": int(regs.group(1)) if regs else None,
-            "static_smem_bytes": int(smem.group(1)) if smem else 0,
-            "spill_bytes": (sum(int(a) + int(b) for a, b in spills)
-                            if spills else None)}
+    out = {"registers": int(regs.group(1)) if regs else None,
+           "static_smem_bytes": int(smem.group(1)) if smem else 0,
+           "spill_bytes": (sum(int(a) + int(b) for a, b in spills)
+                           if spills else None)}
+    # one "Function properties for <mangled>" block per kernel
+    blocks = re.findall(
+        r"Function properties for (\S+)\s+\d+ bytes stack frame, (\d+) "
+        r"bytes spill stores, (\d+) bytes spill loads\s+ptxas info\s+: "
+        r"Used (\d+) registers", log)
+    if len(blocks) > 1:
+        out["kernels"] = [[short_name(m), int(r), int(a) + int(b)]
+                          for m, a, b, r in blocks]
+    return out
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's name from its mangled symbol _ZN<namespace><name>...: the
+    name, with its template arguments as mangled (``ILi4EE`` for <4>)."""
+    ns = re.match(r"_ZN(\d+)", mangled)
+    if not ns:
+        return mangled
+    rest = mangled[ns.end() + int(ns.group(1)):]
+    n = re.match(r"\d+", rest)
+    if not n:
+        return mangled
+    start = len(n.group(0))
+    name = rest[start:start + int(n.group(0))]
+    tmpl = re.match(r"I.*?E(?=Ev)", rest[start + int(n.group(0)):])
+    return name + (tmpl.group(0) if tmpl else "")
 
 
 def launch_shape(name: str, tile: int) -> dict:
-    """The block a blend kernel (library ``name``: "blend" or
-    "blend_bwd") launches for ``tile``, as its library computes it, with
-    the ptxas report of this run's build."""
-    import ctypes
-    from bloomscene_tpu_torch.ops.cuda import build
-    fn = getattr(build.library(name), {
-        "blend": "bs_blend_forward_shape",
-        "blend_bwd": "bs_blend_backward_shape"}[name])
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    threads, smem = ctypes.c_int(), ctypes.c_int()
-    build.check(fn(tile, ctypes.byref(threads), ctypes.byref(smem)),
-                f"{name} shape")
-    return {"block": [threads.value, 1, 1],
-            "dynamic_smem_bytes": smem.value,
-            **ptxas_report(build.build_log(name))}
+    """The blocks a blend kernel (library ``name``: "blend" or
+    "blend_bwd") launches for ``tile``, as its library computes them (a
+    tile above 32 is split into ``splits`` blocks), with the ptxas report
+    of this run's build."""
+    from bloomscene_tpu_torch.ops.cuda import blend, build
+    threads, smem, splits = blend.launch_shape(name, tile)
+    return {"block": [threads, 1, 1], "dynamic_smem_bytes": smem,
+            "splits": splits, **ptxas_report(build.build_log(name))}
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -325,6 +353,27 @@ def kernel_checks(model, cam, cfg, vcap, pcap, mode: str = "eval"):
                  visible_capacity=vcap, pair_capacity=pcap,
                  packed_capacity=pcap)
     return forward_kernel_rows(res, cam.intrinsics, cfg, pcap)
+
+
+def k1_bound(counts_p, ncon, tile: int) -> tuple[float, str]:
+    """K1's bound: the slab's live slots, counts and ids read, seven
+    [P, T] planes written; BLEND_OPS_PER_STEP a (pixel, slot) step, at
+    least n_contrib steps a pixel."""
+    P, T = tile * tile, counts_p.numel()
+    return bound(4 * (10 * int(counts_p.sum()) + 2 * T + 7 * P * T),
+                 BLEND_OPS_PER_STEP * float(ncon.double().sum()))
+
+
+def k2_bound(counts_p, ncon, tile: int, cap: int) -> tuple[float, str]:
+    """K2's bound: the walked slots and eight [P, T] planes read, the
+    [10, cap, T] gradient written; BLEND_BWD_OPS_PER_STEP a walked
+    (pixel, slot) step."""
+    from bloomscene_tpu_torch.ops.cuda.blend import blend_walk
+    P, T = tile * tile, counts_p.numel()
+    walk = blend_walk(counts_p, ncon)
+    return bound(4 * (10 * int(walk.sum()) + 8 * P * T + 2 * T
+                      + 10 * cap * T),
+                 BLEND_BWD_OPS_PER_STEP * float(ncon.double().sum()))
 
 
 def k3_bound(args) -> tuple[float, str]:
@@ -437,10 +486,7 @@ def forward_kernel_rows(res, intr, cfg, pcap):
     k1_ok = (all(errs[nm] <= 1e-5 for nm in ("r", "g", "b", "acc", "T"))
              and errs["D"] <= 1e-4)
     k1_bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
-    P, T = tile * tile, counts_p.numel()
-    steps = float(out_p[6].double().sum())     # >= ncon steps per pixel
-    t_bytes, by = bound(4 * (10 * int(counts_p.sum()) + 2 * T + 7 * P * T),
-                        BLEND_OPS_PER_STEP * steps)
+    t_bytes, by = k1_bound(counts_p, out_p[6], tile)
     rows.append(dict(
         name="blend_forward", route="cuda",
         source="bloomscene_tpu_torch/csrc/blend.cu",
@@ -745,11 +791,8 @@ def train_kernel_checks(trainer, cfg, views, phase: int = 0):
     k2_ok = (natural and within and deterministic and resolved
              and all(caught.values()))
 
-    P, T = tile * tile, counts_p.numel()
+    t_bytes, by = k2_bound(counts_p, ncon, tile, cap)
     walk = blend_walk(counts_p, ncon)
-    t_bytes, by = bound(4 * (10 * int(walk.sum()) + 8 * P * T + 2 * T
-                             + 10 * cap * T),
-                        BLEND_BWD_OPS_PER_STEP * float(ncon.double().sum()))
     row = dict(
         name="blend_backward", route="cuda",
         source="bloomscene_tpu_torch/csrc/blend_bwd.cu",
@@ -941,13 +984,17 @@ def hashgrid_row(calls):
     """hashgrid_bwd on one phase-2 step's four calls: against a float64
     index_add_ (within HASHGRID_RTOL of each cell's summed magnitudes),
     against its plain version (index_add_, atomic float32: twice that),
-    bitwise equal to itself; kernel, plain and index_add_ times and the
-    bound summed over the calls."""
+    bitwise equal to itself; the kernel's time with its sort's share (the
+    sort alone) and its sum's (the rest), the plain version's, and
+    index_add_'s in its atomic form and in PyTorch's deterministic mode
+    (torch.use_deterministic_algorithms, the library call with the
+    kernel's contract), and the bound, each summed over the calls."""
     from bloomscene_tpu_torch.ops.cuda import build
     from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import (
-        grid_scatter, grid_scatter_plain)
+        grid_scatter, grid_scatter_plain, grid_scatter_sort)
     ok, err, used = True, 0.0, 0.0
-    ms = plain_ms = lib_ms = bound_s = sort_ms = 0.0
+    ms = plain_ms = lib_ms = det_ms = bound_s = sort_ms = 0.0
+    det_same = True
     shapes = []
     for rows, idx, n_cells in calls:
         got = grid_scatter(rows, idx, n_cells)
@@ -966,12 +1013,19 @@ def hashgrid_row(calls):
                                 / tol.clamp(min=1e-300)).max()))
         out = torch.zeros_like(plain)
         ms += time_ms(lambda: grid_scatter(rows, idx, n_cells), 10)
-        # of it, the wrapper's stable sort of the cells
-        sort_ms += time_ms(lambda: torch.sort(idx.to(torch.int32),
-                                              stable=True), 10)
+        sort_ms += time_ms(lambda: grid_scatter_sort(rows, idx, n_cells), 10)
         plain_ms += time_ms(lambda: grid_scatter_plain(rows, idx, n_cells),
                             10)
         lib_ms += time_ms(lambda: out.index_add_(0, idx, rows), 10)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            det_ms += time_ms(lambda: out.index_add_(0, idx, rows), 10)
+            det_same = det_same and torch.equal(
+                grid_scatter_plain(rows, idx, n_cells),
+                grid_scatter_plain(rows, idx, n_cells))
+        finally:
+            torch.use_deterministic_algorithms(was)
         M, F = rows.shape
         # rows and cells read once, the table written once; F adds an entry
         bound_s += bound(4 * M * F + 8 * M + 4 * n_cells * F, M * F)[0]
@@ -982,10 +1036,13 @@ def hashgrid_row(calls):
         name="hashgrid_bwd", route="cuda",
         source="bloomscene_tpu_torch/csrc/hashgrid_bwd.cu",
         # no TPU kernel: the transpose of this gather, XLA's scatter-add
-        replaces="bloomscene_tpu/ops/hashgrid.py:147", max_abs_err=err, max_tolerance_used=used,
-        rtol_of_magnitudes=HASHGRID_RTOL, deterministic=ok, ms=ms,
+        replaces="bloomscene_tpu/ops/hashgrid.py:147", max_abs_err=err,
+        max_tolerance_used=used, rtol_of_magnitudes=HASHGRID_RTOL,
+        deterministic=ok, ms=ms, sort_ms=sort_ms, sum_ms=ms - sort_ms,
         plain_ms=plain_ms, bound_ms=bound_s, bound_by="bytes",
-        library_ms=lib_ms, sort_ms=sort_ms, calls=len(calls),
+        bound_share=bound_s / ms, library_ms=lib_ms,
+        library_ms_deterministic=det_ms,
+        library_deterministic_bitwise=det_same, calls=len(calls),
         **ptxas_report(build.build_log("hashgrid_bwd")),
         shapes={"calls": shapes}), ok
 
@@ -1185,10 +1242,15 @@ def growth_phase(model, cams, frames, depths, voxel: float, counters: dict,
     return trainer, cfg, views, summary, all(checks.values())
 
 
-def tile_checks(model, cam, cfg, tiles=(8, 12, 16)):
-    """One orbit frame rendered at each tile: K1 bitwise and K2 within its
-    magnitude tolerance against their plain versions (K2 on seeded
-    cotangent planes at a per-pixel scale), and both kernels' times."""
+def tile_checks(model, cam, cfg, tiles=TILES):
+    """One orbit frame rendered at each tile: the whole frame (binning
+    included) finite; K1 bitwise and K2 within its magnitude tolerance
+    against their plain versions (K2 on seeded cotangent planes at a
+    per-pixel scale) and bitwise across two launches; both kernels' times,
+    block shapes and splits, and the overflow counters. A tile above 32 is
+    binned with TILE_CAPACITY[tile] slots a tile (the default 1,024 scaled
+    by the tile's area over tile 16's), since a larger tile gathers more
+    splats; slots past it drop the farthest pairs and are counted."""
     import dataclasses
     from bloomscene_tpu_torch.models.render import prefilter_anchors, render
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
@@ -1202,7 +1264,8 @@ def tile_checks(model, cam, cfg, tiles=(8, 12, 16)):
     out = {}
     ok = True
     for tile in tiles:
-        c = dataclasses.replace(cfg, tile_size=tile)
+        c = dataclasses.replace(cfg, tile_size=tile, max_splats_per_tile=(
+            TILE_CAPACITY.get(tile, cfg.max_splats_per_tile)))
         res = render(model, intr, arrs, c, mode="eval", visible=vis,
                      pair_capacity=1 << 21, packed_capacity=1 << 21)
         bins = res.bins
@@ -1222,14 +1285,33 @@ def tile_checks(model, cam, cfg, tiles=(8, 12, 16)):
                                                            magnitude=True)
         k2_ok = (bool(((got - want).abs() <= tol).all())
                  and torch.equal(got, blend_backward(*bargs)))
-        ok = ok and k1_bitwise and k2_ok and int(bins.num_pairs) > 0
+        frame_ok = bool(torch.isfinite(res.out.color).all()
+                        and torch.isfinite(res.out.depth).all())
+        ok = (ok and k1_bitwise and k2_ok and frame_ok
+              and int(bins.num_pairs) > 0)
+        k1, k2 = launch_shape("blend", tile), launch_shape("blend_bwd", tile)
+        k1_b, k1_by = k1_bound(counts_p, fp[6], tile)
+        k2_b, k2_by = k2_bound(counts_p, fp[6], tile, bins.slab.shape[1])
+        k1_ms = time_ms(lambda: blend_forward(*args), 50)
+        k2_ms = time_ms(lambda: blend_backward(*bargs), 20)
         out[tile] = {
             "positions": counts_p.numel(), "num_pairs": int(bins.num_pairs),
+            "max_splats_per_tile": c.max_splats_per_tile,
+            "largest_tile_count": int(counts_p.max()),
+            "tile_overflow": int(bins.tile_overflow),
+            "pair_overflow": int(bins.pair_overflow),
+            "frame_finite": frame_ok,
             "k1_bitwise": k1_bitwise, "k2_within_tolerance": k2_ok,
-            "k1_ms": time_ms(lambda: blend_forward(*args), 50),
-            "k2_ms": time_ms(lambda: blend_backward(*bargs), 20),
-            "k1_block": launch_shape("blend", tile)["block"],
-            "k2_block": launch_shape("blend_bwd", tile)["block"],
+            "k2_max_abs_err": max_abs(got, want),
+            "k1_ms": k1_ms, "k2_ms": k2_ms,
+            "k1_plain_ms": time_ms(lambda: blend_forward_plain(*args), 1),
+            "k2_plain_ms": time_ms(lambda: blend_backward_plain(*bargs), 1),
+            "k1_bound_ms": k1_b, "k1_bound_by": k1_by,
+            "k2_bound_ms": k2_b, "k2_bound_by": k2_by,
+            "k1_bound_share": k1_b / k1_ms, "k2_bound_share": k2_b / k2_ms,
+            "k1_block": k1["block"], "k1_splits": k1["splits"],
+            "k2_block": k2["block"], "k2_splits": k2["splits"],
+            "k2_dynamic_smem_bytes": k2["dynamic_smem_bytes"],
             "color_mean": float(res.out.color.mean())}
     return out, ok
 
@@ -1390,7 +1472,8 @@ def main() -> int:
     # 10. the whole schedule: phases 0-2, the bounds refresh, two
     # densification steps
     trainer_s, cfg_s, views_s, s_steps, s_dens, s_summary, s_ok = \
-        schedule_phase(fresh, cams, frames, depths, voxel, counters)
+        schedule_phase(model_to(fresh, fresh.state.device), cams, frames,
+                       depths, voxel, counters)
     for step in s_steps:
         emit({"phase": "schedule_step", **step})
     for d in s_dens:
@@ -1491,7 +1574,7 @@ def main() -> int:
     if not g_k2_ok:
         failed.append("blend_backward (grown)")
 
-    # 18. K1 and K2 at tiles 8, 12 and 16
+    # 18. K1 and K2 at tiles 8, 12, 16, 40 and 64
     tiles, tiles_ok = tile_checks(model_to(fresh, fresh.state.device),
                                   cams[0], cfg)
     emit({"phase": "tiles", "card": card, "tiles": tiles, "ok": tiles_ok})

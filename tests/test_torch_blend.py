@@ -100,9 +100,12 @@ def test_empty_scene_renders_background():
 
 
 @pytest.mark.parametrize('w,h,tile', [(72, 40, 16), (56, 56, 8),
-                                      (64, 64, 32)])
+                                      (64, 64, 32), (72, 72, 40),
+                                      (128, 96, 64)])
 def test_odd_geometry_matches_jax(rng, w, h, tile):
-    """Non-square, non-tile-multiple images and tile sizes 8 and 32."""
+    """Non-square, non-tile-multiple images and tile sizes 8 and 32, and
+    40 and 64, which the card's kernels split into several blocks a
+    tile."""
     pj, pt, colors, opac = scene(rng, 60, W=w, H=h)
     bg = np.array([0.25, 0.5, 0.75], np.float32)
     out_t, _ = rasterize_tiles(pt, torch.from_numpy(colors),

@@ -77,6 +77,19 @@ def loss_of(out, case, tgt_c, tgt_d, lib):
     ('truncation', 200, 24, (0.3, 0.1, 0.6)),
     ('odd_cap', 60, 18, (0.1, 0.2, 0.3))])
 def test_tile_blend_grads_match_jax(rng, case, n, cap, bg):
+    check_grads_against_jax(rng, case, n, cap, bg, TILE, ('pallas', 'xla'))
+
+
+def test_tile_blend_grads_match_jax_at_tile_48(rng):
+    """A tile above 32, which the card's kernels split into several blocks
+    a tile (three of 768 pixels at 48): the port's gradients against the
+    JAX package's XLA blend (the Pallas kernel is not built for a tile of
+    2,304 pixels) on a 64x64 view of 2 x 2 tiles."""
+    check_grads_against_jax(rng, 'all_outputs', 60, 128, (0.1, 0.2, 0.3),
+                            48, ('xla',))
+
+
+def check_grads_against_jax(rng, case, n, cap, bg, tile, backends):
     p, colors, opac = make_scene(rng, n)
     bg = np.array(bg, np.float32)
     tgt_c = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
@@ -86,7 +99,7 @@ def test_tile_blend_grads_match_jax(rng, case, n, cap, bg):
 
     def jax_loss(backend, mean2d, conic, depth, colors, opac, bg):
         pp = p._replace(mean2d=mean2d, conic=conic, depth=depth)
-        out, bins = jax_raster(pp, colors, opac, bg, W, H, tile=TILE,
+        out, bins = jax_raster(pp, colors, opac, bg, W, H, tile=tile,
                                tile_capacity=cap, backend=backend)
         return loss_of(out, case, tgt_c, tgt_d, jnp), bins.tile_overflow
 
@@ -97,13 +110,13 @@ def test_tile_blend_grads_match_jax(rng, case, n, cap, bg):
                            radius=torch.from_numpy(np.array(p.radius)),
                            valid=torch.from_numpy(np.array(p.valid)))
     out, bins = rasterize_tiles(proj, leaves[3], leaves[4], leaves[5], W, H,
-                                tile=TILE, tile_capacity=cap)
+                                tile=tile, tile_capacity=cap)
     loss_t = loss_of(out, case, torch.from_numpy(tgt_c),
                      torch.from_numpy(tgt_d), torch)
     grads_t = torch.autograd.grad(loss_t, leaves)
     assert (int(bins.tile_overflow) > 0) == (cap < 128)
 
-    for backend in ('pallas', 'xla'):
+    for backend in backends:
         (loss_j, overflow), grads_j = jax.jit(jax.value_and_grad(
             lambda *a: jax_loss(backend, *a), argnums=tuple(range(6)),
             has_aux=True))(*args)

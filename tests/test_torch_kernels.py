@@ -184,7 +184,13 @@ def slab_case(case: str, seed: int = 0):
             torch.from_numpy(starts.astype(np.int32)), cap)
 
 
-HASHGRID_CASES = ('random', 'dead_run', 'chunk_edges', 'one_cell', 'short')
+HASHGRID_CASES = ('random', 'dead_run', 'chunk_edges', 'one_cell', 'short',
+                  'levels', 'empty', 'wide')
+# the 'levels' encoder: 3D levels of 5,832 (18^3) and 8,192 cells, as the
+# grid's small and hashed levels, 8 corners each, anchors in slot order with
+# the dead ones (one point, so one cell a level and corner) at the end
+LEVEL_CELLS = (5832, 8192, 8192)
+LEVEL_ANCHORS, LEVEL_DEAD = 3000, 700
 
 
 def hashgrid_case(case: str, seed: int = 0):
@@ -196,10 +202,20 @@ def hashgrid_case(case: str, seed: int = 0):
       training step sits in one cell of each level) among 20,000 random
       ones, shuffled;
     - chunk_edges: runs of 1, 63, 64, 65, 127, 128, 129 and 640 entries
-      back to back, so runs start and end on and beside the kernel's
-      chunk boundaries, then shuffled;
-    - one_cell: 5,000 entries on one cell (the list is one run);
-    - short: 5 entries, fewer than one chunk."""
+      on cells of one window, then shuffled, so the window's steps of 32
+      entries mix cells (each cell's entries added over several rounds);
+    - one_cell: 5,000 entries on one cell (every step one run, and the
+      run spans chunks);
+    - short: 5 entries, fewer than one step;
+    - levels: a small encoder laid out as the real one, [level, corner,
+      anchor] with each level's cells a disjoint range after the ones
+      before it (LEVEL_CELLS), live anchors in runs of 1-8 on one cell
+      (neighbouring anchors share a cell), and one dead run of LEVEL_DEAD
+      entries on one cell per level and corner, contiguous as in a
+      training step;
+    - empty: no entry (M = 0): every cell 0;
+    - wide: 20,000 entries over 300,000 cells, more than 256 windows, so
+      the kernel sorts in two radix passes and counts the windows apart."""
     rng = np.random.default_rng(seed)
     n_cells = 4096
     if case == 'random':
@@ -209,51 +225,82 @@ def hashgrid_case(case: str, seed: int = 0):
                               rng.integers(0, n_cells, 20000)])
     elif case == 'chunk_edges':
         lengths = (1, 63, 64, 65, 127, 128, 129, 640)
-        idx = np.repeat(rng.choice(n_cells, len(lengths), replace=False),
+        idx = np.repeat(rng.choice(512, len(lengths), replace=False),
                         lengths)
     elif case == 'one_cell':
         idx = np.full(5000, 4095)
+    elif case == 'levels':
+        parts, offset = [], 0
+        for size in LEVEL_CELLS:
+            live = LEVEL_ANCHORS - LEVEL_DEAD
+            for _ in range(8):
+                cells = offset + rng.integers(0, size, live)
+                runs = np.repeat(cells, rng.integers(1, 9, live))[:live]
+                parts += [runs,
+                          np.full(LEVEL_DEAD, offset + rng.integers(size))]
+            offset += size
+        n_cells = offset
+        idx = np.concatenate(parts)
+    elif case == 'empty':
+        idx = np.zeros(0, np.int64)
+    elif case == 'wide':
+        n_cells = 300000
+        idx = rng.integers(0, n_cells, 20000)
     else:
         idx = rng.integers(0, n_cells, 5)
-    idx = rng.permutation(idx)
+    if case != 'levels':
+        idx = rng.permutation(idx)
     rows = rng.normal(size=(idx.size, 4)).astype(np.float32)
     return torch.from_numpy(rows), torch.from_numpy(idx.astype(np.int64)), \
         n_cells
 
 
-def chunked_segment_sum(rows: np.ndarray, idx: np.ndarray, n_cells: int,
-                        chunk: int) -> np.ndarray:
+def chunked_segment_sum(rows: np.ndarray, idx: np.ndarray, n_cells: int
+                        ) -> np.ndarray:
     """numpy twin of csrc/hashgrid_bwd.cu, in float32 and in its order:
-    entries sorted stably by cell; pass 1 adds each run inside a chunk of
-    ``chunk`` sorted entries in list order, pass 2 adds the pieces of a
-    run that spans chunks in chunk order."""
-    order = np.argsort(idx, kind='stable')
-    keys, vals = idx[order], rows[order]
-    M = keys.size
-    out = np.zeros((n_cells, rows.shape[1]), np.float32)
-    pieces = {}                 # cell -> partial sums of a spanning run
-    for lo in range(0, M, chunk):
-        hi = min(lo + chunk, M)
-        i = lo
-        while i < hi:
-            j = i
-            acc = np.zeros(rows.shape[1], np.float32)
-            while j < hi and keys[j] == keys[i]:
-                acc = acc + vals[j]
-                j += 1
-            begins = i > lo or lo == 0 or keys[lo - 1] != keys[lo]
-            ends = j < hi or hi == M or keys[hi] != keys[hi - 1]
-            if begins and ends:
-                out[keys[i]] = acc
-            else:
-                pieces.setdefault(keys[i], []).append(acc)
-            i = j
-    for cell, parts in pieces.items():
-        acc = parts[0]
-        for p in parts[1:]:
-            acc = acc + p
-        out[cell] = acc
-    return out
+    entries sorted stably by window (cell >> window_bits(F)); each
+    window's run cut into chunks of CHUNK; a chunk summed into its own
+    zeroed table STEP entries (lanes) at a time: each run of one cell on
+    consecutive lanes by the kernel's segmented Hillis-Steele scan (lane j
+    adds lane j - off's value of the step before, offsets 1 to 16, within
+    its run), then the runs' sums into the table in lane order; each
+    cell's chunk tables added in chunk order from 0."""
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import (CHUNK, STEP,
+                                                            window_bits)
+    F = rows.shape[1]
+    wb = window_bits(F)
+    W = 1 << wb
+    win = idx >> wb
+    order = np.argsort(win, kind='stable')
+    keys, vals = idx[order] & (W - 1), rows[order]
+    n_win = -(-n_cells // W)
+    starts = np.concatenate([[0], np.cumsum(np.bincount(win,
+                                                        minlength=n_win))])
+    out = np.zeros((n_win * W, F), np.float32)
+    for b in range(n_win):
+        acc = np.zeros((W, F), np.float32)
+        for c0 in range(starts[b], starts[b + 1], CHUNK):
+            c1 = min(c0 + CHUNK, starts[b + 1])
+            tab = np.zeros((W, F), np.float32)
+            for s0 in range(c0, c1, STEP):
+                k = keys[s0:min(s0 + STEP, c1)]
+                v = vals[s0:min(s0 + STEP, c1)].copy()
+                lane = np.arange(k.size)
+                head = np.concatenate([[True], k[1:] != k[:-1]])
+                start = np.maximum.accumulate(np.where(head, lane, 0))
+                off = 1
+                while off < STEP:
+                    src = lane - off
+                    ok = src >= start
+                    new = v.copy()
+                    new[ok] = v[ok] + v[src[ok]]
+                    v = new
+                    off *= 2
+                for j in np.flatnonzero(np.append(k[1:] != k[:-1], True)):
+                    tab[k[j]] = tab[k[j]] + v[j]
+            acc = acc + tab
+        out[b * W:(b + 1) * W] = acc
+    return out[:n_cells]
 
 
 @pytest.mark.parametrize('case', HASHGRID_CASES)
@@ -262,10 +309,9 @@ def test_hashgrid_bwd_algorithm_matches_index_add(case):
     float64 index_add_: within 1e-6 of each cell's summed magnitudes (the
     rounding of float32 sums in another order), untouched cells exactly
     0; the CPU wrapper is index_add_ itself."""
-    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import (CHUNK,
-                                                            grid_scatter)
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import grid_scatter
     rows, idx, n_cells = hashgrid_case(case)
-    got = chunked_segment_sum(rows.numpy(), idx.numpy(), n_cells, CHUNK)
+    got = chunked_segment_sum(rows.numpy(), idx.numpy(), n_cells)
     ref = torch.zeros((n_cells, 4), dtype=torch.float64).index_add_(
         0, idx, rows.double()).numpy()
     mag = torch.zeros((n_cells, 4), dtype=torch.float64).index_add_(
@@ -287,14 +333,14 @@ def test_hashgrid_bwd_kernel(case):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import (
-        CHUNK, grid_scatter, grid_scatter_plain)
+        grid_scatter, grid_scatter_plain)
     rows, idx, n_cells = hashgrid_case(case)
     dev = torch.device('cuda')
     got = grid_scatter(rows.to(dev), idx.to(dev), n_cells)
     again = grid_scatter(rows.to(dev), idx.to(dev), n_cells)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    twin = chunked_segment_sum(rows.numpy(), idx.numpy(), n_cells, CHUNK)
+    twin = chunked_segment_sum(rows.numpy(), idx.numpy(), n_cells)
     assert np.array_equal(got.cpu().numpy(), twin)
     plain = grid_scatter_plain(rows.to(dev), idx.to(dev), n_cells).cpu()
     mag = grid_scatter_plain(rows.abs(), idx, n_cells)
@@ -312,18 +358,19 @@ def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('kernel,tile,error', [
-    ('forward', 0, ValueError), ('forward', 33, ValueError),
-    ('backward', 40, ValueError), ('forward', 5, RuntimeError),
-    ('forward', 12, RuntimeError), ('backward', 1, RuntimeError),
-    ('backward', 20, RuntimeError), ('forward', 8, RuntimeError),
-    ('backward', 24, RuntimeError)])
+    ('forward', 0, ValueError), ('forward', 33, RuntimeError),
+    ('backward', 64, RuntimeError), ('backward', -1, ValueError),
+    ('forward', 5, RuntimeError), ('forward', 12, RuntimeError),
+    ('backward', 1, RuntimeError), ('backward', 20, RuntimeError),
+    ('forward', 8, RuntimeError), ('backward', 24, RuntimeError)])
 def test_blend_wrappers_check_tiles(tmp_path, monkeypatch, kernel, tile,
                                     error):
-    """Either blend kernel takes any tile from 1 to 32 (a block of two-pixel
-    threads, rounded up to whole warps). Tensors off the CPU go to the
-    kernel (here on the meta device, which has shapes and no memory): a
-    tile outside 1-32 raises before anything is built, any other reaches
-    the build, which raises without nvcc (no fallback)."""
+    """Either blend kernel takes any tile from 1 up (up to 32 a tile is one
+    block of two-pixel threads, rounded up to whole warps; above it a tile
+    is split into blocks). Tensors off the CPU go to the kernel (here on
+    the meta device, which has shapes and no memory): a tile below 1 raises
+    before anything is built, any other reaches the build, which raises
+    without nvcc (no fallback)."""
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
                                                      blend_forward)
     monkeypatch.setattr(build, 'BUILD_DIR', tmp_path)
@@ -331,10 +378,10 @@ def test_blend_wrappers_check_tiles(tmp_path, monkeypatch, kernel, tile,
     monkeypatch.setenv('PATH', str(tmp_path))
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     dev = torch.device('meta')
-    T, P = 4, tile * tile
+    T, P = 4, max(tile, 1) ** 2
     slab = torch.empty((10, 8, T), device=dev)
     ints = torch.empty(T, dtype=torch.int32, device=dev)
-    with pytest.raises(error, match='tiles 1 to 32' if error is ValueError
+    with pytest.raises(error, match='tiles of 1 pixel' if error is ValueError
                        else 'nvcc not found'):
         if kernel == 'forward':
             blend_forward(slab, ints, ints, tile, 2)
@@ -418,16 +465,20 @@ def test_kernels_match_plain(rng):
                          + [('mixed', 8), ('full_column', 8), ('mixed', 24),
                             ('mixed', 32), ('full_column', 32)]
                          + [(c, t) for t in (1, 4, 5, 12, 20)
-                            for c in ('mixed', 'full_column', 'early_stop')])
+                            for c in ('mixed', 'full_column', 'early_stop')]
+                         + [(c, t) for t in (33, 40, 48, 64)
+                            for c in ('mixed', 'full_column')])
 def test_blend_kernels_edge_cases(case, tile):
     """K1 bitwise and K2 within the rounding of its pixel sums, against
     their plain versions, at the edges of the kernels' slot batches and at
     tiles 8 (a one-warp block), 24 (nine warps, K2 just under 48 KB of
-    shared memory) and 32 (K2 above 48 KB) beside 16, and at tiles whose
+    shared memory) and 32 (K2 above 48 KB) beside 16, at tiles whose
     pixel count is no multiple of 64, so the last warp holds inactive
     lanes: 1 (one pixel), 4 and 12 (even), 5 (odd: a thread's two pixels
-    straddle two rows) and 20; K2 twice, bitwise, with every row at or
-    past a tile's walk zero."""
+    straddle two rows) and 20, and at tiles split into several blocks:
+    33 (odd, two blocks), 40 (two blocks, the last short), 48 (three full
+    blocks) and 64 (four blocks of 1,024 pixels); K2 twice, bitwise, with
+    every row at or past a tile's walk zero."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
