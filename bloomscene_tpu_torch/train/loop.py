@@ -11,12 +11,16 @@ the hash-grid context, adaptive noise and the rate), and every
 ``update_interval`` steps ``Trainer.run`` runs the anchor surgery
 (``models/densify.py::adjust_anchor``) at the JAX trainer's cadence.
 
-Not ported yet (ROADMAP queue 1): ``make_train_scan`` (a device loop),
-``make_dp_train_step`` (data parallelism) and the trainer's checkpoint
-save/restore.
+``Trainer.save``/``restore`` write and read the port's own trainer
+checkpoint, which resumes a run bit for bit, past densification steps too.
+
+Not ported yet (ROADMAP queue 1): ``make_train_scan`` (a device loop) and
+``make_dp_train_step`` (data parallelism).
 """
 from __future__ import annotations
 
+import json
+import os
 import warnings
 from typing import NamedTuple
 
@@ -28,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import GSConfig
 from ..device import resolve_device
 from ..models import densify
-from ..models.anchors import update_anchor_bounds
+from ..models.anchors import AnchorBounds, AnchorState, update_anchor_bounds
 from ..models.decode import DecodeNoise, draw_noise
 from ..models.densify import DensifyStats
 from ..models.model import Model
@@ -244,6 +248,80 @@ class Trainer:
         self.densify_rng = np.random.default_rng(seed)
         self.history: list[dict] = []
         self.step = 0
+
+    # --- the trainer checkpoint ---
+    def save(self, path: str) -> None:
+        """Write everything a resumed run needs to ``path`` (an ``.npz``)
+        and the step to ``{stem}.meta.json``: the model's leaves (state,
+        heads, hash tables, bounds), ``Adam``'s moments and count, the
+        densify statistics, and the three generators (``noise_gen``'s
+        device state, the camera stream ``rng`` and the surgery's
+        ``densify_rng``). A run restored from it continues as the straight
+        run would, bit for bit, past densification steps too (the JAX
+        trainer saves no numpy generator, loop.py:379-386).
+
+        The file is the port's own format; the JAX package cannot load it
+        (its trainer checkpoint holds optax's state and a JAX key)."""
+        m = self.model
+        arrays = {f'state.{f}': t.detach().cpu().numpy()
+                  for f, t in m.state.flat_leaves().items()}
+        arrays.update({f'heads.{n}': p.detach().cpu().numpy()
+                       for n, p in m.heads.named_parameters()})
+        arrays.update({f'grid.{k}': t.detach().cpu().numpy()
+                       for k, t in m.grid.items()})
+        arrays['bounds.x_min'] = m.bounds.x_min.detach().cpu().numpy()
+        arrays['bounds.x_max'] = m.bounds.x_max.detach().cpu().numpy()
+        arrays.update({f'adam.{k}': v for k, v in
+                       self.optimizer.state_arrays().items()})
+        arrays.update({f'stats.{f}': t.detach().cpu().numpy()
+                       for f, t in self.stats._asdict().items()})
+        arrays['noise_gen'] = self.noise_gen.get_state().numpy()
+        for name in ('rng', 'densify_rng'):
+            arrays[name] = np.frombuffer(json.dumps(
+                getattr(self, name).bit_generator.state).encode(), np.uint8)
+        os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+        np.savez(path, **arrays)
+        with open(os.path.splitext(path)[0] + '.meta.json', 'w') as f:
+            json.dump({'step': self.step}, f)
+
+    @torch.no_grad()
+    def restore(self, path: str) -> None:
+        """Read a ``save`` file into this trainer, built with the same
+        config, intrinsics and seed: the model at the saved capacity (which
+        densification may have grown past this trainer's), its saved
+        bounds, its trained leaves requiring grad and taken by ``Adam``
+        with the saved moments, the statistics, the generators and the
+        step."""
+        with np.load(path if path.endswith('.npz') else path + '.npz',
+                     allow_pickle=False) as f:
+            data = {k: f[k] for k in f.files}
+        dev = self.model.state.device
+
+        def t(key):
+            return torch.from_numpy(data[key]).to(dev)
+
+        state = AnchorState(**{f: t(f'state.{f}')
+                               for f in AnchorState._fields})
+        heads = self.model.heads
+        for n, p in heads.named_parameters():
+            p.copy_(t(f'heads.{n}'))
+        model = Model(state=state, heads=heads,
+                      grid={k: t(f'grid.{k}') for k in self.model.grid},
+                      bounds=AnchorBounds(x_min=t('bounds.x_min'),
+                                          x_max=t('bounds.x_max')))
+        self.model = make_trainable(model)
+        self.optimizer.load_state_arrays(self.model, {
+            k[len('adam.'):]: v for k, v in data.items()
+            if k.startswith('adam.')})
+        self.stats = DensifyStats(**{f: t(f'stats.{f}')
+                                     for f in DensifyStats._fields})
+        self.noise_gen.set_state(torch.from_numpy(data['noise_gen']))
+        for name in ('rng', 'densify_rng'):
+            getattr(self, name).bit_generator.state = json.loads(
+                data[name].tobytes().decode())
+        meta_p = os.path.splitext(path)[0] + '.meta.json'
+        with open(meta_p) as f:
+            self.step = int(json.load(f)['step'])
 
     def _densify_due(self, it: int) -> bool:
         cfg = self.cfg

@@ -124,6 +124,34 @@ class Adam:
             u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
             p.add_(-lrs[group] * u)
 
+    def state_arrays(self) -> dict:
+        """The moments and count as numpy arrays: ``m.<leaf name>``,
+        ``v.<leaf name>`` (the port's shapes) and ``count``."""
+        out = {'count': np.asarray(self.count, np.int64)}
+        for (name, _, _), m, v in zip(self.params, self.m, self.v):
+            out[f'm.{name}'] = m.detach().cpu().numpy()
+            out[f'v.{name}'] = v.detach().cpu().numpy()
+        return out
+
+    @torch.no_grad()
+    def load_state_arrays(self, model: Model, arrays) -> None:
+        """Take the trained leaves of ``model`` (of any capacity) as the
+        parameters, as ``anchor_surgery`` does, and the moments and count
+        from ``arrays`` (``state_arrays``'s keys, at that capacity)."""
+        params = param_groups(model)
+        if [n for n, _, _ in params] != [n for n, _, _ in self.params]:
+            raise ValueError("the model's trained leaves changed names")
+        self.m, self.v = [], []
+        for name, _, p in params:
+            for moments, key in ((self.m, f'm.{name}'), (self.v, f'v.{name}')):
+                a = np.asarray(arrays[key])
+                if tuple(a.shape) != tuple(p.shape):
+                    raise ValueError(f"{key}: shape {a.shape}, the leaf's "
+                                     f"{tuple(p.shape)}")
+                moments.append(torch.from_numpy(a.copy()).to(p.device))
+        self.count = int(arrays['count'])
+        self.params = params
+
     @torch.no_grad()
     def anchor_surgery(self, model: Model, old_capacity: int,
                        changed: np.ndarray) -> None:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render and training paths on one CUDA card and
-hold its kernels against their plain versions.
+"""Drive the PyTorch port's render, training and pipeline paths on one CUDA
+card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -65,7 +65,13 @@ nonzero:
    capacity, capacity_grown, time_s), one summary (mean and median step
    ms per phase, the phase-2 rate); losses finite, the phase-2 rate
    finite and positive, exactly two surgeries, n_alive moved by n_new -
-   n_pruned, K2 once a step and K1, K3, K4 twice (remat).
+   n_pruned, K2 once a step and K1, K3, K4 twice (remat). The trainer
+   writes its checkpoint after step RESUME_SAVE_AT (phase 2, past the
+   first densification); then ``resume``: a fresh Trainer built from the
+   same initial model restores it and runs to step 40, and every model
+   leaf, Adam's moments and count, the densify statistics and the three
+   generators' states must equal the straight run's bit for bit (the
+   save's and restore's seconds, the file's MB).
 11. kernels on a phase-2 step's inputs after the densification steps, as
    in phase 8.
 12. hashgrid_bwd: the hash grid's deterministic backward on the four
@@ -111,13 +117,38 @@ nonzero:
 19. phase2_ab: the schedule's trainer goes on for 4 runs of 5 phase-2
    steps, with the hash grid's backward on the kernel, on ``index_add_``,
    on ``index_add_``, on the kernel: the step medians of both.
+20. pipeline: ``bloomscene_tpu_torch.pipeline.run.main`` as a user runs it
+   (PIPELINE_ARGS: stub priors on examples/01_childroom.png at 128x128,
+   voxel 0.03 at the model's default widths, 32,768 slots a tile, 60 steps
+   with the DPR losses and a record each step, 8 orbit frames) into
+   outputs/chip_smoke/pipeline, its printing sent to main.log there, with
+   every counter set to 0 just before and read just after: every output
+   file (settings, traindata, the PLYs, the checkpoint, the bitstreams,
+   the codec sizes, the training log, the metrics, the eval PNGs, both
+   videos or their PNG frame directories), K1, K3 and K4 launched for
+   every rendered frame and training forward, K2 once a step, every loss
+   finite and the last below the first, and no splat dropped: no step's
+   tile, pair or packed overflow, and none in the orbit's or the eval
+   views' frames (rendered again after the run, with their statistics).
+   The points, anchors and capacity, each stage's wall seconds from the
+   BloomScene's own spans (generate, training and its steps/s, compress
+   with encode and decode, the orbit with its fps, the eval views with
+   theirs), the MB, the proxy metrics and the overflow counters. Then
+   K3, K4, K1 and K2 on the trained model's inputs at step 60, as phase 8.
+21. cold_start: ``main(['--load_dir', <the pipeline's directory>])``, a
+   fresh ``BloomScene.load`` that decodes the bitstreams: the decoded
+   anchors, features, scalings, offsets and masks equal the pipeline's
+   in-memory decoded model bit for bit, and no decoded frame overflows;
+   the decoded orbit's fps. Then K3, K4 and K1 on its first decoded
+   frame's inputs, as phase 15.
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
-K4 at the render's shapes with their training, post-schedule, decoded and
-grown shapes under ``train_shape``, ``schedule_shape``, ``decoded_shape``
-and ``growth_shape``, K2 at the training shape, hashgrid_bwd at a phase-2
-step's; launches of the render, train, schedule, decoded orbit and growth
-paths; the ptxas report of each:
+K4 at the render's shapes with their training, post-schedule, decoded,
+grown, pipeline and cold-start shapes under ``train_shape``,
+``schedule_shape``, ``decoded_shape``, ``growth_shape``, ``pipeline_shape``
+and ``cold_start_shape``, K2 at the training shape with its schedule,
+growth and pipeline shapes, hashgrid_bwd at a phase-2 step's; launches of the render, train, schedule, decoded orbit and growth
+paths, the pipeline and the cold start; the ptxas report of each:
 registers, static shared memory, spill bytes; for K1 and K2 also the
 block shape and dynamic shared memory), the one before it
 the card's name and power limit; the last line is
@@ -126,9 +157,12 @@ printing anything on stdout.
 """
 from __future__ import annotations
 
+import ast
+import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -175,6 +209,23 @@ GOLDEN_GRAD_ATOL, GOLDEN_GRAD_RTOL = 2e-5, 2e-3
 GROWTH = dict(voxel_size=0.03, use_dpr=True, start_stat=0, iterations=20,
               update_from=10, update_interval=10, update_until=30)
 AB_STEPS = 5                   # phase-2 steps a run of phase 19
+RESUME_SAVE_AT = 25            # the schedule's trainer checkpoint (phase 2)
+# phase 20: the CLI as a user runs it, at the model's full default widths,
+# at 128x128: at 256x256 generation (host numpy and scipy) took the whole
+# script past 300 s on the H100's machine (PERF.md). A 128x128 frame has
+# 64 tiles, which the early steps' large splats crowd: with the default
+# 1,024 slots a tile, splats were dropped in every step but the first
+# (PERF.md); 32,768 keep every splat of this run, and the check fails if
+# one is dropped. A record each step gives every step's loss and overflow
+# counters (one readback a step)
+PIPELINE_ARGS = ("--priors", "stub", "--resolution", "128",
+                 "--voxel_size", "0.03", "--max_splats_per_tile", "32768",
+                 "--iterations", "60", "--log_every", "1",
+                 "--render_frames", "8", "--dep_value", "--dep_domin",
+                 "--dep_smooth", "--device", "cuda")
+PIPELINE_FILES = ("settings.json", "traindata.npz", "point_cloud.ply",
+                  "gsplat.ply", "checkpoint.npz", "bitstreams/meta.json",
+                  "codec_sizes.json", "train_log.json", "metrics.json")
 # phase 18: the tiles of one frame (12 and 40: a partial last warp; 40 and
 # 64: split into blocks), and the slots a tile above 32 is binned with
 # (the default 1,024 x its area over tile 16's)
@@ -603,13 +654,15 @@ def perturbed(model, seed: int):
     return model._replace(state=st._replace(feat=feat))
 
 
-def timed_run(trainer, views, iterations: int, counters: dict):
+def timed_run(trainer, views, iterations: int, counters: dict,
+              after_step=None):
     """``trainer.run`` up to step ``iterations`` with every launch counter
     set to 0 just before and read just after -> (records, step ms, launch
     counts, wall seconds, peak device bytes, caught warnings). A step's
     ms lie between CUDA events recorded at the ends of consecutive steps
     (the host loop reads every step's metrics, so each step ends
-    synchronized); None on the CPU."""
+    synchronized); None on the CPU. ``after_step(record)``, when given,
+    runs after each step (its time falls in the next step's ms)."""
     import warnings
     timed = trainer.bg.device.type == "cuda"
     marks, records = [], []
@@ -623,6 +676,8 @@ def timed_run(trainer, views, iterations: int, counters: dict):
     def on_step(rec):
         mark()
         records.append(rec)
+        if after_step is not None:
+            after_step(rec)
 
     if timed:
         torch.cuda.synchronize()
@@ -876,11 +931,14 @@ def phase2_grad_reference(model, size: int, repo: str):
 
 
 def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
-                   device: str = "cuda"):
+                   device: str = "cuda", save_path: str | None = None):
     """A fresh Trainer on the perturbed model, run through SCHEDULE's
     phases 0-2 and two densification steps; one record per step (with its
     phase and ms), one per ``adjust_anchor``, and a summary with the mean
-    and median step ms of each phase."""
+    and median step ms of each phase. With ``save_path`` the trainer
+    writes its checkpoint there after step RESUME_SAVE_AT (the summary's
+    ``checkpoint``: seconds and MB; the save's time falls in the next
+    step's ms)."""
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.train.loop import Trainer, phase_of_step
     cfg = GSConfig(**SCHEDULE)
@@ -892,8 +950,18 @@ def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
                       seed=SEED, device=device)
     alive0 = trainer.model.state.num_alive()
     capacity0 = trainer.model.state.capacity
+    saved = {}
+
+    def save(rec):
+        if save_path is not None and rec["iteration"] == RESUME_SAVE_AT:
+            t0 = time.perf_counter()
+            trainer.save(save_path)
+            saved.update(step=RESUME_SAVE_AT,
+                         save_s=time.perf_counter() - t0,
+                         mb=os.path.getsize(save_path) / 1e6)
+
     records, ms, launches, wall, peak, caught = timed_run(
-        trainer, views, cfg.iterations, counters)
+        trainer, views, cfg.iterations, counters, after_step=save)
     steps, dens = [], []
     alive, capacity, alive_chain = alive0, capacity0, True
     for rec, t in zip(records, ms):
@@ -949,8 +1017,238 @@ def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
         "skipped_updates": int(sum(s["skipped"] for s in steps)),
         "peak_mem_bytes": peak, "warnings": len(caught),
         "first_warning": str(caught[0].message) if caught else None,
-        "checks": checks}
+        "checkpoint": saved or None, "checks": checks}
     return trainer, cfg, views, steps, dens, summary, all(checks.values())
+
+
+def trainer_differences(a, b) -> list[str]:
+    """The names of what differs, to the bit, between two trainers: the
+    step, every model leaf, Adam's moments and count, the densify
+    statistics, and the three generators' states."""
+    diff = [] if a.step == b.step else ["step"]
+
+    def check(name, x, y):
+        if x.shape != y.shape or not torch.equal(x, y):
+            diff.append(name)
+    for f, x in a.model.state.flat_leaves().items():
+        check(f"state.{f}", x.detach(), b.model.state.flat_leaves()[f].detach())
+    for (n, x), (_, y) in zip(a.model.heads.named_parameters(),
+                              b.model.heads.named_parameters()):
+        check(f"heads.{n}", x.detach(), y.detach())
+    for k in a.model.grid:
+        check(f"grid.{k}", a.model.grid[k].detach(), b.model.grid[k].detach())
+    for n, x, y in zip(("x_min", "x_max"), a.model.bounds, b.model.bounds):
+        check(f"bounds.{n}", x, y)
+    oa, ob = a.optimizer.state_arrays(), b.optimizer.state_arrays()
+    diff += [f"adam.{k}" for k in oa
+             if k not in ob or oa[k].shape != ob[k].shape
+             or not np.array_equal(oa[k], ob[k])]
+    for f, x, y in zip(a.stats._fields, a.stats, b.stats):
+        check(f"stats.{f}", x, y)
+    if not torch.equal(a.noise_gen.get_state(), b.noise_gen.get_state()):
+        diff.append("noise_gen")
+    for g in ("rng", "densify_rng"):
+        if (getattr(a, g).bit_generator.state
+                != getattr(b, g).bit_generator.state):
+            diff.append(g)
+    return diff
+
+
+def resume_check(model, trainer_s, cfg, intr, voxel: float, views,
+                 save_path: str, device: str = "cuda"):
+    """A fresh Trainer, built as the schedule's from the same initial
+    ``model``, restores the schedule's checkpoint (written after step
+    RESUME_SAVE_AT, past the densification at step 20 and in phase 2) and
+    runs on to the schedule's last step: everything must equal the
+    straight run's, bit for bit."""
+    from bloomscene_tpu_torch.train.loop import Trainer
+    trainer = Trainer(perturbed(model, SEED), cfg, intr, voxel, seed=SEED,
+                      device=device)
+    t0 = time.perf_counter()
+    trainer.restore(save_path)
+    restore_s = time.perf_counter() - t0
+    step0 = trainer.step
+    t0 = time.perf_counter()
+    trainer.run(views, iterations=cfg.iterations, log_every=cfg.iterations)
+    run_s = time.perf_counter() - t0
+    diff = trainer_differences(trainer_s, trainer)
+    checks = {"restored_step": step0 == RESUME_SAVE_AT,
+              "bitwise_equal_to_straight_run": not diff}
+    return dict(restore_s=restore_s, resumed_steps=cfg.iterations - step0,
+                run_s=run_s, differences=diff, checks=checks), \
+        all(checks.values())
+
+
+OVERFLOW_KEYS = ("tile_overflow", "pair_overflow", "packed_overflow")
+
+
+def overflow_summary(records) -> dict:
+    """The largest and the summed count of each overflow counter over
+    ``records`` (training records or frame statistics), and how many of
+    them dropped anything."""
+    out = {k: {"max": int(max((r[k] for r in records), default=0)),
+               "sum": int(sum(r[k] for r in records))}
+           for k in OVERFLOW_KEYS}
+    out["records"] = len(records)
+    out["records_with_overflow"] = sum(
+        any(r[k] > 0 for k in OVERFLOW_KEYS) for r in records)
+    return out
+
+
+def frame_overflow(model, cameras, cfg, mode: str) -> dict:
+    """``render_model``'s frame statistics for ``cameras`` (rendered again,
+    after the counters were read), summed by ``overflow_summary``, with
+    the first frame's buffer sizes."""
+    from bloomscene_tpu_torch.pipeline.bloomscene import render_model
+    stats: list = []
+    render_model(model, cameras, cfg, mode=mode, device="cuda",
+                 frame_stats=stats)
+    return {**overflow_summary(stats),
+            "visible_capacity": stats[0]["visible_capacity"],
+            "pair_capacity": stats[0]["pair_capacity"]}
+
+
+def run_main(argv, log_path: str, counters: dict):
+    """``pipeline.run.main(argv)``, unmodified, with its printing sent to
+    ``log_path`` and every launch counter set to 0 just before and read
+    just after -> (the BloomScene, its stages' spans, launches, wall
+    seconds, the orbit's result as the CLI printed it)."""
+    from bloomscene_tpu_torch.pipeline import run
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        bs = run.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    with open(log_path) as f:
+        video = [ast.literal_eval(ln[len("video: "):]) for ln in f
+                 if ln.startswith("video: ")]
+    return bs, bs.spans.summary(), launches, wall, video[-1]
+
+
+def pipeline_phase(repo: str, workdir: str, counters: dict, card: str):
+    """``python -m bloomscene_tpu_torch.pipeline.run`` as a user runs it
+    (PIPELINE_ARGS on examples/01_childroom.png into a fresh ``workdir``):
+    every output file must be there, K1, K3 and K4 must launch for every
+    rendered frame and training forward, K2 once a step, every loss
+    finite and the last below the first, and no step and no rendered
+    frame may drop a splat."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    argv = (*PIPELINE_ARGS,
+            "--image", os.path.join(repo, "examples", "01_childroom.png"),
+            "--text", os.path.join(repo, "examples", "01_childroom.txt"),
+            "--save_dir", workdir)
+    bs, st, launches, wall, video = run_main(
+        argv, os.path.join(workdir, "main.log"), counters)
+    cfg = bs.cfg
+    steps = bs.trainer.step
+    iterations = int(PIPELINE_ARGS[PIPELINE_ARGS.index("--iterations") + 1])
+    losses = [r["loss"] for r in bs.logs]
+    orbit = bs.scene.preset_cameras["rotate360"]
+    evals = bs.scene.eval_cameras or bs.scene.train_cameras
+    forwards = steps * (2 if cfg.remat else 1)
+    with open(os.path.join(workdir, "codec_sizes.json")) as f:
+        sizes = json.load(f)
+    with open(os.path.join(workdir, "metrics.json")) as f:
+        metrics = json.load(f)
+    overflow = {"training": overflow_summary(bs.logs),
+                "orbit": frame_overflow(bs.model, orbit, cfg, "eval"),
+                "eval_views": frame_overflow(bs.model, evals, cfg, "eval")}
+
+    def video_written(name):
+        return (os.path.exists(os.path.join(workdir, name + ".mp4"))
+                or os.path.exists(os.path.join(workdir, name, "0000.png")))
+    missing = [f for f in PIPELINE_FILES
+               if not os.path.exists(os.path.join(workdir, f))]
+    missing += [f"eval_renders/{i:03d}.png" for i in range(len(evals))
+                if not os.path.exists(os.path.join(
+                    workdir, "eval_renders", f"{i:03d}.png"))]
+    missing += [v for v in ("rotate360", "rotate360_depth")
+                if not video_written(v)]
+    checks = {
+        "files": not missing,
+        "steps": steps == len(losses) == iterations,
+        "finite": bool(losses) and all(np.isfinite(losses)),
+        "loss_falls": bool(losses) and losses[-1] < losses[0],
+        "blend_backward_once_per_step": launches["blend_backward"] == steps,
+        "forward_kernels_every_frame_and_forward": all(
+            launches[k] >= len(orbit) + len(evals) + forwards
+            for k in ("pair_expansion", "slab_expansion", "blend_forward")),
+        "decoded": bs.decoded_model is not None,
+        "metrics_finite": all(np.isfinite(metrics[k]) for k in (
+            "proxy_sharpness", "proxy_colorfulness", "proxy_contrast")),
+        "no_splat_dropped": all(o["records_with_overflow"] == 0
+                                for o in overflow.values()),
+    }
+    t_train = st["training"]["total_s"]
+    out = {
+        "card": card, "argv": list(PIPELINE_ARGS), "wall_s": wall,
+        "points": int(bs.traindata["pcd_points"].shape[1]),
+        "supervision_frames": len(bs.traindata["frames"]),
+        "anchors": bs.model.state.num_alive(),
+        "capacity": bs.model.state.capacity,
+        "max_splats_per_tile": cfg.max_splats_per_tile,
+        "generate_s": st["generate"]["total_s"],
+        "training_s": t_train, "steps": steps,
+        "steps_per_s": steps / t_train,
+        "compress_s": st["compress"]["total_s"],
+        "encode_s": sizes["encode_time_s"], "decode_s": sizes["decode_time_s"],
+        "save_outputs_s": st["save_outputs"]["total_s"],
+        "render_video_s": st["render_video"]["total_s"],
+        "video_frames": video["n_frames"], "video_fps": video["eval_fps"],
+        "render_eval_s": st["render_eval"]["total_s"],
+        "eval_frames": len(evals), "eval_fps": metrics["eval_fps"],
+        "total_MB": sizes["total_MB"],
+        "proxy": {k: metrics[k] for k in (
+            "proxy_sharpness", "proxy_colorfulness", "proxy_contrast")},
+        "loss_first": losses[0] if losses else None,
+        "loss_last": losses[-1] if losses else None,
+        "loss_first5": float(np.mean(losses[:5])) if losses else None,
+        "loss_last5": float(np.mean(losses[-5:])) if losses else None,
+        "overflow": overflow,
+        "launches": launches, "missing": missing, "checks": checks}
+    return bs, out, all(checks.values())
+
+
+def cold_start_phase(workdir: str, first, counters: dict, card: str):
+    """``--load_dir`` on the pipeline's output in a fresh ``BloomScene``:
+    the decoded state must equal the first run's in-memory decoded model
+    bit for bit, K1, K3 and K4 launch for every rendered frame, and no
+    decoded frame drops a splat."""
+    bs, st, launches, wall, video = run_main(
+        ("--load_dir", workdir, "--device", "cuda", "--render_frames", "8"),
+        os.path.join(workdir, "cold_start.log"), counters)
+    a, b = bs.decoded_model, first.decoded_model
+    differ = [f for f in ("anchor", "feat", "scaling_log", "offset",
+                          "mask_logit")
+              if a is None or not torch.equal(getattr(a.state, f),
+                                              getattr(b.state, f))]
+    orbit = bs.scene.preset_cameras["rotate360"]
+    n_eval = len(bs.scene.eval_cameras or bs.scene.train_cameras)
+    # render_eval writes into the loaded run's directory
+    with open(os.path.join(workdir, "metrics.json")) as f:
+        metrics = json.load(f)
+    overflow = frame_overflow(bs.decoded_model, orbit, bs.cfg, "decoded")
+    checks = {
+        "decoded_bitwise_equal": not differ,
+        "forward_kernels_every_frame": all(
+            launches[k] >= len(orbit) + n_eval
+            for k in ("pair_expansion", "slab_expansion", "blend_forward")),
+        "no_backward": launches["blend_backward"] == 0,
+        "no_splat_dropped": overflow["records_with_overflow"] == 0,
+    }
+    return bs, {"card": card, "wall_s": wall,
+                "decoded_fps": video["eval_fps"],
+                "video_frames": video["n_frames"],
+                "render_video_s": st["render_video"]["total_s"],
+                "eval_fps": metrics["eval_fps"],
+                "eval_frames": n_eval, "differences": differ,
+                "overflow": overflow, "launches": launches,
+                "checks": checks}, all(checks.values())
 
 
 def capture_grid_scatter(trainer, cfg, views):
@@ -1471,9 +1769,12 @@ def main() -> int:
 
     # 10. the whole schedule: phases 0-2, the bounds refresh, two
     # densification steps
+    workdir = os.path.join(repo, "outputs", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    ckpt = os.path.join(workdir, "schedule_trainer.npz")
     trainer_s, cfg_s, views_s, s_steps, s_dens, s_summary, s_ok = \
         schedule_phase(model_to(fresh, fresh.state.device), cams, frames,
-                       depths, voxel, counters)
+                       depths, voxel, counters, save_path=ckpt)
     for step in s_steps:
         emit({"phase": "schedule_step", **step})
     for d in s_dens:
@@ -1481,6 +1782,14 @@ def main() -> int:
     emit({"phase": "schedule", "card": card, **s_summary, "ok": s_ok})
     if not s_ok:
         failed.append("schedule")
+    # the schedule's checkpoint, restored into a fresh trainer and run on
+    resume, resume_ok = resume_check(
+        model_to(fresh, fresh.state.device), trainer_s, cfg_s,
+        cams[0].intrinsics, voxel, views_s, ckpt)
+    emit({"phase": "resume", "card": card, **(s_summary["checkpoint"] or {}),
+          **resume, "ok": resume_ok})
+    if not resume_ok:
+        failed.append("resume")
 
     # 11. the kernels on a phase-2 step's inputs after the densification
     s_row, s_k2_ok, s_fwd_rows, s_fwd_ok = train_kernel_checks(
@@ -1501,7 +1810,7 @@ def main() -> int:
 
     # 13. the codec on the schedule's model
     decoded, codec, codec_ok = codec_phase(
-        trainer_s.model, cfg_s, os.path.join(repo, "outputs", "chip_smoke"))
+        trainer_s.model, cfg_s, workdir)
     emit({"phase": "codec", "card": card, **codec, "ok": codec_ok})
     if not codec_ok:
         failed.append("codec")
@@ -1586,22 +1895,65 @@ def main() -> int:
     emit({"phase": "phase2_ab", "card": card, **ab, "ok": ab_ok})
     if not ab_ok:
         failed.append("phase2_ab")
+    del trainer, trainer_s, trainer_g
+    torch.cuda.empty_cache()
+
+    # 20. the CLI as a user runs it: generate, train, compress, save,
+    # render the orbit and the eval views
+    pipe_dir = os.path.join(workdir, "pipeline")
+    bs, pipe, pipe_ok = pipeline_phase(repo, pipe_dir, counters, card)
+    emit({"phase": "pipeline", **pipe, "ok": pipe_ok})
+    if not pipe_ok:
+        failed.append("pipeline")
+    # the kernels on the inputs of the pipeline's last training step
+    from bloomscene_tpu_torch.train.loop import phase_of_step
+    p_row, p_k2_ok, p_fwd_rows, p_fwd_ok = train_kernel_checks(
+        bs.trainer, bs.cfg, bs.train_views(),
+        phase=phase_of_step(bs.trainer.step, bs.cfg))
+    for r in p_fwd_rows + [p_row]:
+        emit({"phase": "kernel", "at": "pipeline_step", "card": card, **r})
+    failed += [f"{name} (pipeline step)" for name, good in p_fwd_ok.items()
+               if not good]
+    if not p_k2_ok:
+        failed.append("blend_backward (pipeline step)")
+
+    # 21. a cold start from the pipeline's files
+    cold_bs, cold, cold_ok = cold_start_phase(pipe_dir, bs, counters, card)
+    emit({"phase": "cold_start", **cold, "ok": cold_ok})
+    if not cold_ok:
+        failed.append("cold_start")
+    # the kernels at its first decoded frame's shapes
+    c_rows, c_ok = kernel_checks(
+        cold_bs.decoded_model, cold_bs.scene.preset_cameras["rotate360"][0],
+        cold_bs.cfg, cold["overflow"]["visible_capacity"],
+        cold["overflow"]["pair_capacity"], mode="decoded")
+    for r in c_rows:
+        emit({"phase": "kernel", "at": "cold_start_frame", "card": card,
+              **r})
+    failed += [f"{name} (cold start frame)" for name, good in c_ok.items()
+               if not good]
 
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
-    for r, t, u, d, g in zip(rows, fwd_rows, s_fwd_rows, d_rows, g_fwd_rows):
+    for r, t, u, d, g, pp, c in zip(rows, fwd_rows, s_fwd_rows, d_rows,
+                                    g_fwd_rows, p_fwd_rows, c_rows):
         r["train_shape"] = {k: t[k] for k in shape_keys}
         r["schedule_shape"] = {k: u[k] for k in shape_keys}
         r["decoded_shape"] = {k: d[k] for k in shape_keys}
         r["growth_shape"] = {k: g[k] for k in shape_keys}
+        r["pipeline_shape"] = {k: pp[k] for k in shape_keys}
+        r["cold_start_shape"] = {k: c[k] for k in shape_keys}
     row["schedule_shape"] = {k: s_row[k] for k in shape_keys}
     row["growth_shape"] = {k: g_row[k] for k in shape_keys}
+    row["pipeline_shape"] = {k: p_row[k] for k in shape_keys}
     rows += [row, hg_row]
     # a kernel's launches are those of the main paths: render, train, the
-    # schedule, the decoded orbit and the growth run
+    # schedule, the decoded orbit, the growth run, the CLI's pipeline and
+    # its cold start
     paths = {"render": launches, "train": summary["launches"],
              "schedule": s_summary["launches"], "decoded": d_launches,
-             "growth": g_summary["launches"]}
+             "growth": g_summary["launches"], "pipeline": pipe["launches"],
+             "cold_start": cold["launches"]}
     for r in rows:
         for path, counts in paths.items():
             r[f"launches_{path}"] = counts[r["name"]]
@@ -1614,7 +1966,7 @@ def main() -> int:
             *(f"launches_{p}" for p in paths),
             "block", "dynamic_smem_bytes", "static_smem_bytes", "registers",
             "spill_bytes", "train_shape", "schedule_shape", "decoded_shape",
-            "growth_shape")
+            "growth_shape", "pipeline_shape", "cold_start_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:
