@@ -163,9 +163,10 @@ class GSConfig:
     # full-scale scenes in 16G HBM)
     remat: bool = True
     # run training in device-loop chunks (Trainer.run(device_loop=True)):
-    # lax.scan over up to device_loop_chunk steps per dispatch with
-    # in-graph camera sampling — hides per-step host dispatch latency.
-    # Same step/RNG/event sequence as the host loop (see train/loop.py).
+    # up to device_loop_chunk steps a chunk, each a replay of a CUDA graph
+    # of the step, the camera read on the card from the chunk's draws —
+    # hides the per-step host launch latency. Same step/RNG/event sequence
+    # and the same state bit for bit as the host loop (see train/loop.py).
     device_loop: bool = False
     device_loop_chunk: int = 50
 

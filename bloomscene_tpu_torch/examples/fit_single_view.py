@@ -6,9 +6,13 @@ The port of ``bloomscene_tpu/examples/fit_single_view.py``: the same scene
 check, that the eval render's mean L1 error drops.
 
     python -m bloomscene_tpu_torch.examples.fit_single_view \\
-        --steps 300 --out outputs/fit_single_view [--color_mode sh]
+        --steps 300 --out outputs/fit_single_view [--color_mode sh] \\
+        [--device_loop]
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path.
+``--device_loop`` trains in chunks of CUDA graph replays
+(``Trainer.run(device_loop=True)``), to the host loop's result bit for
+bit.
 """
 from __future__ import annotations
 
@@ -44,10 +48,13 @@ def build_scene(n_points: int = 1500, seed: int = 0, res: int = 128):
 def fit(steps: int = 300, res: int = 128, seed: int = 0,
         device: str = "cuda", out: str | None = None,
         log_every: int = 25, n_points: int = 1500,
-        color_mode: str = 'mlp', sh_degree: int = 1) -> dict:
+        color_mode: str = 'mlp', sh_degree: int = 1,
+        device_loop: bool = False) -> dict:
     """Train ``steps`` steps on a shell of ``n_points`` points; returns the
-    loss curve's ends and the L1 errors of the eval render before and
-    after. Writes before/after images (``.npy``) and the loss curve to
+    loss curve's ends, the L1 errors of the eval render before and after,
+    the device loop's capture records (``Trainer.graph_log``; empty for
+    the host loop and on the CPU), and the trained ``trainer`` with its
+    ``views``. Writes before/after images (``.npy``) and the loss curve to
     ``out`` when given."""
     from ..config import GSConfig
     from ..device import resolve_device
@@ -77,7 +84,7 @@ def fit(steps: int = 300, res: int = 128, seed: int = 0,
     t0 = time.perf_counter()
     trainer = Trainer(model, cfg, cam.intrinsics, voxel_size, seed=seed,
                       device=str(dev))
-    model = trainer.run(views, log_every=log_every,
+    model = trainer.run(views, log_every=log_every, device_loop=device_loop,
                         callback=lambda rec: print(
                             f"step {rec['iteration']:4d} "
                             f"loss {rec['loss']:.4f} "
@@ -89,7 +96,9 @@ def fit(steps: int = 300, res: int = 128, seed: int = 0,
               'loss_first': hist[0]['loss'],
               'loss_last': hist[-1]['loss'],
               'l1_before': float(np.mean(np.abs(before - img))),
-              'l1_after': float(np.mean(np.abs(after - img)))}
+              'l1_after': float(np.mean(np.abs(after - img))),
+              'graphs': trainer.graph_log,
+              'trainer': trainer, 'views': views}
     if out:
         os.makedirs(out, exist_ok=True)
         np.save(os.path.join(out, 'before.npy'), before)
@@ -109,9 +118,13 @@ def main():
     ap.add_argument('--color_mode', type=str, default='mlp',
                     choices=('mlp', 'sh'))
     ap.add_argument('--sh_degree', type=int, default=1)
+    ap.add_argument('--device_loop', action='store_true',
+                    help='train in chunks of CUDA graph replays of the step')
     args = ap.parse_args()
     result = fit(args.steps, args.res, args.seed, args.device, args.out,
-                 color_mode=args.color_mode, sh_degree=args.sh_degree)
+                 color_mode=args.color_mode, sh_degree=args.sh_degree,
+                 device_loop=args.device_loop)
+    del result['trainer'], result['views']
     print(json.dumps({**result, 'out': args.out}))
     if not result['l1_after'] < result['l1_before']:
         raise SystemExit("training did not improve the render")

@@ -258,7 +258,7 @@ def _decode(model: Model, cam_center: torch.Tensor, cfg: GSConfig,
     neural_opacity = heads_lib.apply_opacity(model.heads, cat_view)
     neural_opacity = neural_opacity.reshape(-1) * binary_mask.reshape(-1)
     child_valid = ((neural_opacity > 0.0)
-                   & torch.repeat_interleave(visible, K))
+                   & repeat_rows(visible, K))
     opacity = torch.where(child_valid, neural_opacity, 0.0)
 
     scale_rot = heads_lib.apply_cov(model.heads, cat_view).reshape(-1, 7)

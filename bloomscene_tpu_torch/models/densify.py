@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import GSConfig
+from ..device import device_constant
 from .anchors import capacity_bucket, inverse_sigmoid
 from .model import Model
 
@@ -56,8 +57,8 @@ def accumulate_stats(stats: DensifyStats, neural_opacity: torch.Tensor,
     (backward.cu:473-475)."""
     C = stats.opacity_accum.shape[0]
     K = stats.offset_grad_accum.shape[0] // C
-    scale = torch.tensor([W * 0.5, H * 0.5], dtype=torch.float32,
-                         device=mean2d_grad.device)
+    scale = device_constant(np.asarray([W * 0.5, H * 0.5], np.float32),
+                            mean2d_grad.device)
     g = mean2d_grad.reshape(-1, 2) * scale
     gnorm = torch.linalg.vector_norm(g, dim=-1)
     V = gnorm.shape[0] // K

@@ -58,13 +58,18 @@ def prefilter_anchors(model: Model, intr: Intrinsics,
 def compact_visible(model: Model, visible: torch.Tensor,
                     visible_capacity: int) -> tuple[Model, torch.Tensor]:
     """Gather the visible anchors into a bucket of ``visible_capacity``
-    rows, padded with dead rows (``jnp.nonzero(size=..., fill_value=C)``);
-    visible anchors past the bucket are dropped."""
+    rows, padded with dead rows; visible anchors past the bucket are
+    dropped. The indices (int64) are ``jnp.nonzero(visible,
+    size=visible_capacity, fill_value=C)``: entry j is where the running
+    count of visible rows first reaches j + 1, or C where it never does,
+    so nothing waits for the host (``torch.nonzero`` would) and a CUDA
+    graph can capture it."""
     st = model.state
     C = st.capacity
-    idx = torch.nonzero(visible).flatten()[:visible_capacity]
-    idx = torch.cat([idx, torch.full((visible_capacity - idx.shape[0],), C,
-                                     dtype=idx.dtype, device=idx.device)])
+    count = torch.cumsum(visible, 0)
+    rank = torch.arange(1, visible_capacity + 1, dtype=count.dtype,
+                        device=visible.device)
+    idx = torch.searchsorted(count, rank, side='left')
     ok = idx < C
     safe = torch.clamp(idx, max=C - 1)
     return model._replace(state=st.gather_rows(safe, ok & st.alive[safe])), idx

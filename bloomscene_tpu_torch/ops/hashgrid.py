@@ -150,12 +150,11 @@ def grid_encode(params: torch.Tensor, x: torch.Tensor,
             coords = torch.stack(coords, -1)                   # [N, d]
             on_ring = torch.any((coords == 0) | (coords == R - 1), dim=-1)
             idx_all.append(_corner_index(torch.clamp(coords, 0, R - 1), R,
-                                         table_size, spec.num_dim))
+                                         table_size, spec.num_dim)
+                           + offsets[li])
             wv_all.append(torch.where(on_ring, 0.0, w))
     n_corners = 2 ** spec.num_dim
-    level_of = torch.tensor(offsets[:-1], device=x.device)
-    idx = (torch.stack(idx_all).view(-1, n_corners, n)
-           + level_of[:, None, None]).reshape(-1)
+    idx = torch.stack(idx_all).reshape(-1)
     # one unbind: its backward stacks the corners' cotangents in one copy
     vals = _GridGather.apply(emb, idx).view(-1, n, spec.n_features).unbind(0)
 
@@ -212,9 +211,11 @@ def mix_encode(params: dict, x: torch.Tensor,
                spec: Mix3D2DSpec) -> torch.Tensor:
     """x [N,3] in [0,1] -> concat(xyz, xy, xz, yz) features."""
     out_xyz = grid_encode(params['xyz'], x, spec.spec_xyz)
-    out_xy = grid_encode(params['xy'], x[:, [0, 1]], spec.spec_2d)
-    out_xz = grid_encode(params['xz'], x[:, [0, 2]], spec.spec_2d)
-    out_yz = grid_encode(params['yz'], x[:, [1, 2]], spec.spec_2d)
+    # slices, not list indices: a list index is copied to the card on
+    # every call, which a CUDA graph cannot capture
+    out_xy = grid_encode(params['xy'], x[:, 0:2], spec.spec_2d)
+    out_xz = grid_encode(params['xz'], x[:, 0::2], spec.spec_2d)
+    out_yz = grid_encode(params['yz'], x[:, 1:3], spec.spec_2d)
     return torch.cat([out_xyz, out_xy, out_xz, out_yz], -1)
 
 

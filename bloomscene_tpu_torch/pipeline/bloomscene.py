@@ -289,11 +289,6 @@ class BloomScene:
         if self.scene is None:
             raise RuntimeError("training: generate() (or load a scene) "
                                "first")
-        if self.cfg.device_loop:
-            raise NotImplementedError(
-                "GSConfig.device_loop: the device loop (JAX's "
-                "make_train_scan; CUDA graphs over the step on the card) is "
-                "not ported yet; train with device_loop=False")
         dev = self.device
         model, voxel_size = init_model(self.seed, self.scene.points,
                                        self.cfg, device=dev)
@@ -321,7 +316,9 @@ class BloomScene:
 
         self.model = self.trainer.run(views, iterations=iterations,
                                       log_every=log_every,
-                                      callback=callback)
+                                      callback=callback,
+                                      device_loop=self.cfg.device_loop,
+                                      max_chunk=self.cfg.device_loop_chunk)
         self.logs = self.trainer.history
         return self.model
 

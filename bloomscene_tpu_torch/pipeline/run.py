@@ -9,9 +9,11 @@ weights) and the shrink-run options, plus ``--device`` (default "cuda";
 record's interval, 100 as the JAX CLI's fixed one). The input PNG is read and resized
 without PIL (``utils/image.py``). ``--load_dir`` takes the model's widths
 from the saved run's ``settings.json`` (the JAX CLI takes the defaults,
-so a run trained at other widths does not load there). ``--device_loop``
-is refused: the device loop is not ported. ``main`` returns the
-``BloomScene``.
+so a run trained at other widths does not load there).
+``--device_loop`` trains in chunks of up to ``--device_loop_chunk`` steps,
+each replaying a CUDA graph of the step on the card (``Trainer.run``); it
+raises where a capture fails and never falls back to the host loop.
+``main`` returns the ``BloomScene``.
 """
 from __future__ import annotations
 
@@ -71,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: 'cuda' (the card, default) or 'cpu' "
                         "(the plain PyTorch path)")
     p.add_argument('--device_loop', action='store_true',
-                   help='train in device-loop chunks (the JAX package\'s '
-                        'lax.scan over steps); not ported, refused')
+                   help='train in chunks of up to --device_loop_chunk '
+                        'steps, each a CUDA graph of the step replayed back '
+                        'to back on the card (the same steps on the CPU)')
     p.add_argument('--device_loop_chunk', type=int, default=50)
     p.add_argument('--iterations', type=int, default=None,
                    help='override training iterations (default: config)')
@@ -164,11 +167,6 @@ def _config(args: argparse.Namespace) -> GSConfig:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     np.random.seed(args.seed)
-    if args.device_loop:
-        raise SystemExit(
-            "--device_loop: the device loop (the JAX package's "
-            "make_train_scan; CUDA graphs over the step on the card) is not "
-            "ported yet; train without it")
 
     preset_json = None
     if args.campath_render.endswith('.json'):

@@ -1,4 +1,4 @@
-"""One training step of the anchor model, and the host-side training loop.
+"""One training step of the anchor model, and the training loops.
 
 The port of ``bloomscene_tpu/train/loop.py`` (the reference hot loop,
 bloomscene.py:222-361): per step, the anchor prefilter, the neural render
@@ -11,16 +11,35 @@ the hash-grid context, adaptive noise and the rate), and every
 ``update_interval`` steps ``Trainer.run`` runs the anchor surgery
 (``models/densify.py::adjust_anchor``) at the JAX trainer's cadence.
 
+Three loops run that schedule:
+
+- the host loop (``Trainer.run``): one step a call;
+- the device loop (``Trainer.run(device_loop=True)``, JAX's
+  ``make_train_scan``): chunks of up to ``max_chunk`` steps. On the card
+  ``capture_train_step`` records one step as a CUDA graph, which each
+  chunk replays back to back with no host round trip between its steps;
+  the step reads its camera, its Adam scalars and its metrics row from
+  static tensors at a step counter it advances itself (``loop_step``). On
+  the CPU the same chunks run the same ``loop_step`` without a graph. It
+  trains on the host loop's camera sequence and draws, and ends on the
+  host loop's state bit for bit;
+- the batched trainer (``Trainer(dp_batch=B)``, JAX's
+  ``make_dp_train_step`` with ``mesh=None``): B views a step, the mean of
+  their losses.
+
 ``Trainer.save``/``restore`` write and read the port's own trainer
 checkpoint, which resumes a run bit for bit, past densification steps too.
 
-Not ported yet (ROADMAP queue 1): ``make_train_scan`` (a device loop) and
-``make_dp_train_step`` (data parallelism).
+Not ported yet (ROADMAP queue 1): ``Trainer(mesh=...)``, the sharded twin
+of ``dp_batch`` (``bloomscene_tpu/parallel``).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
+import time
 import warnings
 from typing import NamedTuple
 
@@ -37,6 +56,7 @@ from ..models.decode import DecodeNoise, draw_noise
 from ..models.densify import DensifyStats
 from ..models.model import Model
 from ..models.render import prefilter_anchors, render
+from ..ops.cuda import launch_counts
 from ..scene.cameras import CameraArrays, Intrinsics
 from . import losses
 from .optim import Adam, make_trainable
@@ -74,9 +94,14 @@ def compute_losses(res, gt_image, gt_depth, cfg: GSConfig):
     loss_rgb = ((1.0 - cfg.lambda_dssim) * l1
                 + cfg.lambda_dssim * (1.0 - losses.ssim(image, gt_image)))
     loss = loss_rgb
-    # scaling regularizer: prod of decoded child scales (bloomscene.py:289)
+    # scaling regularizer: prod of decoded child scales (bloomscene.py:289),
+    # written out: torch.prod's backward on the card reads a count of zeros
+    # on the host (.item()), which a CUDA graph cannot capture. The
+    # gradient of each factor is the product of the other two, as JAX's
+    # reduce_prod rule gives it
+    s = res.dec.scaling
     scaling_reg = torch.mean(torch.where(
-        res.dec.valid, torch.prod(res.dec.scaling, dim=1), 0.0))
+        res.dec.valid, s[:, 0] * s[:, 1] * s[:, 2], 0.0))
     loss = loss + cfg.lambda_scaling_reg * scaling_reg
     loss = loss + cfg.lambda_entropy * res.rate.bit_per_param
 
@@ -129,62 +154,84 @@ def decoded_rows(model: Model, cfg: GSConfig) -> int:
     return n
 
 
+def view_loss(cfg: GSConfig, intr: Intrinsics, bg, model: Model,
+              visible, m2d_offset, cam: CameraArrays, gt_image, gt_depth,
+              phase: int, noise: DecodeNoise | None = None):
+    """One view's render and loss stack, with grad -> (loss, aux, res).
+    With ``cfg.remat`` the decode and render are recomputed in the
+    backward; ``noise`` is drawn before, so the recomputation sees the same
+    draws, and the render draws nothing itself, so the CUDA RNG state is
+    neither saved nor restored (which a CUDA graph could not capture)."""
+    def render_fn(m2d):
+        return render(model, intr, cam, cfg, phase=phase, mode='train',
+                      bg=bg, visible=visible, mean2d_offset=m2d, noise=noise)
+
+    with torch.enable_grad(), record_function("train.forward"):
+        if cfg.remat:
+            # the forward runs twice per step (K1, K3 and K4 launch twice,
+            # K2 once)
+            res = checkpoint(render_fn, m2d_offset, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            res = render_fn(m2d_offset)
+        loss, aux = compute_losses(res, gt_image, gt_depth, cfg)
+    return loss, aux, res
+
+
+def _gradients(loss, tensors: list) -> list:
+    """d loss / d each of ``tensors`` (zeros where the loss does not reach
+    it)."""
+    with torch.enable_grad(), record_function("train.backward"):
+        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for t, g in zip(tensors, grads)]
+
+
 def step_gradients(cfg: GSConfig, intr: Intrinsics, bg, model: Model,
                    params: list, cam: CameraArrays, gt_image, gt_depth,
                    phase: int, noise: DecodeNoise | None = None):
     """The forward and backward of one step -> (visible, loss, aux, res,
     grads, g_m2d): the gradient of the loss for each tensor of ``params``
-    (zeros where the loss does not reach it) and for the mean2d offset.
-    With ``cfg.remat`` the decode and render are recomputed in the backward
-    (``noise`` is drawn before, so the recomputation sees the same
-    draws)."""
+    (zeros where the loss does not reach it) and for the mean2d offset."""
     with record_function("train.prefilter"):
         visible = prefilter_anchors(model, intr, cam)
     n_child = decoded_rows(model, cfg) * model.state.n_offsets
     m2d_offset = torch.zeros((n_child * 2,), device=visible.device,
                              requires_grad=True)
-
-    def render_fn(m2d):
-        return render(model, intr, cam, cfg, phase=phase, mode='train',
-                      bg=bg, visible=visible, mean2d_offset=m2d, noise=noise)
-
-    with torch.enable_grad():
-        with record_function("train.forward"):
-            if cfg.remat:
-                # recompute decode + render in the backward: the forward
-                # runs twice per step (K1, K3 and K4 launch twice, K2 once)
-                res = checkpoint(render_fn, m2d_offset, use_reentrant=False)
-            else:
-                res = render_fn(m2d_offset)
-            loss, aux = compute_losses(res, gt_image, gt_depth, cfg)
-        with record_function("train.backward"):
-            grads = torch.autograd.grad(loss, params + [m2d_offset],
-                                        allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g
-             for t, g in zip(params + [m2d_offset], grads)]
+    loss, aux, res = view_loss(cfg, intr, bg, model, visible, m2d_offset,
+                               cam, gt_image, gt_depth, phase, noise)
+    grads = _gradients(loss, params + [m2d_offset])
     g_m2d = grads.pop()
     return visible, loss, aux, res, grads, g_m2d
+
+
+@torch.no_grad()
+def _update(optimizer: Adam, loss, grads: list, scalars=None):
+    """The non-finite skip and one Adam step -> ``ok``: a non-finite loss
+    or gradient would poison every parameter through Adam in one step, so
+    the gradients are zeroed and Adam still steps (loop.py:136-147)."""
+    with record_function("train.update"):
+        gsum = sum(torch.sum(torch.abs(g)) for g in grads)
+        ok = torch.isfinite(loss) & torch.isfinite(gsum)
+        grads = [torch.where(ok, g, 0.0) for g in grads]
+        optimizer.step(grads, scalars)
+    return ok
 
 
 def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
                model: Model, stats: DensifyStats, cam: CameraArrays,
                gt_image, gt_depth, phase: int, track_stats: bool,
-               noise: DecodeNoise | None = None):
+               noise: DecodeNoise | None = None, scalars=None):
     """One SGD step (``_step_core``, loop.py:100-168). Its parts run under
     ``record_function`` spans (``train.prefilter``, ``train.forward``,
     ``train.backward``, ``train.update``, ``train.stats``) that a
-    ``torch.profiler`` run reads (``profile_render_torch.py --train``)."""
+    ``torch.profiler`` run reads (``profile_render_torch.py --train``).
+    ``scalars`` is Adam's row for the step in the device loop
+    (``Adam.step``)."""
     params = [t for _, _, t in optimizer.params]
     visible, loss, aux, res, grads, g_m2d = step_gradients(
         cfg, intr, bg, model, params, cam, gt_image, gt_depth, phase, noise)
-
-    # a non-finite loss or gradient would poison every parameter through
-    # Adam in one step: zero the gradients and still step (loop.py:136-147)
-    with torch.no_grad(), record_function("train.update"):
-        gsum = sum(torch.sum(torch.abs(g)) for g in grads)
-        ok = torch.isfinite(loss) & torch.isfinite(gsum)
-        grads = [torch.where(ok, g, 0.0) for g in grads]
-        optimizer.step(grads)
+    ok = _update(optimizer, loss, grads, scalars)
 
     if track_stats:
         with record_function("train.stats"):
@@ -209,15 +256,236 @@ def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
     return model, stats, metrics
 
 
+# --- the batched trainer ------------------------------------------------
+
+def make_dp_train_step(cfg: GSConfig, intr: Intrinsics, optimizer: Adam,
+                       bg: torch.Tensor,
+                       generator: torch.Generator | None = None):
+    """A step over a batch of B views with the mean of their losses (JAX's
+    ``make_dp_train_step`` with ``mesh=None``, loop.py:171-289): each view
+    prefiltered and rendered (remat per view, as ``step_gradients``)
+    inside one autograd graph, one backward, the non-finite skip and one
+    Adam step, then the densify statistics of each view in order with its
+    mean2d gradient times B (the gradient of the mean is 1/B of the view's,
+    so B views count as B single-view steps of the reference's
+    training_statis, gaussian_model.py:742-759).
+
+    step(model, stats, cams, gt_images, gt_depths, idx, *, phase,
+    track_stats, noise=None) -> (model, stats, StepMetrics): ``cams`` a
+    ``CameraArrays`` of stacked [N, ...] tensors, ``gt_images`` [N, H, W,
+    3], ``gt_depths`` [N, H, W], ``idx`` the B views of the step (ints). In
+    phases 1 and 2 each view's draws come from ``noise`` (one
+    ``DecodeNoise`` a view) when given, else from ``generator``, in view
+    order. The metrics are means over the views, the overflow counters
+    their maximum."""
+
+    def dp_step(model: Model, stats: DensifyStats, cams: CameraArrays,
+                gt_images, gt_depths, idx, *, phase: int, track_stats: bool,
+                noise: list | None = None):
+        views = [(CameraArrays(*(x[int(i)] for x in cams)),
+                  gt_images[int(i)], gt_depths[int(i)]) for i in idx]
+        if noise is None:
+            noise = [draw_noise(decoded_rows(model, cfg), cfg, phase,
+                                generator, model.state.device)
+                     for _ in views]
+        return _dp_step_core(cfg, intr, optimizer, bg, model, stats, views,
+                             phase, track_stats, noise)
+
+    return dp_step
+
+
+def _dp_step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
+                  model: Model, stats: DensifyStats, views: list,
+                  phase: int, track_stats: bool, noise: list):
+    B = len(views)
+    params = [t for _, _, t in optimizer.params]
+    with record_function("train.prefilter"):
+        visibles = [prefilter_anchors(model, intr, cam)
+                    for cam, _, _ in views]
+    n_child = decoded_rows(model, cfg) * model.state.n_offsets
+    m2ds = [torch.zeros((n_child * 2,), device=v.device, requires_grad=True)
+            for v in visibles]
+    out = [view_loss(cfg, intr, bg, model, vis, m2d, cam, gt_i, gt_d, phase,
+                     nz)
+           for vis, m2d, (cam, gt_i, gt_d), nz
+           in zip(visibles, m2ds, views, noise)]
+    with torch.enable_grad():
+        loss = torch.mean(torch.stack([o[0] for o in out]))
+    grads = _gradients(loss, params + m2ds)
+    g_m2d = grads[len(params):]
+    ok = _update(optimizer, loss, grads[:len(params)])
+
+    if track_stats:
+        with record_function("train.stats"):
+            for (_, _, res), vis, g in zip(out, visibles, g_m2d):
+                stats = densify.accumulate_stats(
+                    stats, res.dec.neural_opacity.detach(), res.dec.valid,
+                    res.proj.valid, vis, g * B, intr.width, intr.height,
+                    anchor_idx=res.visible_idx)
+
+    def mean(xs):
+        return torch.mean(torch.stack([x.detach().to(torch.float32)
+                                       for x in xs]))
+
+    def biggest(xs):
+        return torch.amax(torch.stack(xs))
+    aux = [o[1] for o in out]
+    res = [o[2] for o in out]
+    metrics = StepMetrics(
+        loss=loss.detach(),
+        loss_rgb=mean([a['loss_rgb'] for a in aux]),
+        loss_dep_value=mean([a['loss_dep_value'] for a in aux]),
+        loss_dep_domin=mean([a['loss_dep_domin'] for a in aux]),
+        loss_dep_smooth=mean([a['loss_dep_smooth'] for a in aux]),
+        bit_per_param=mean([r.rate.bit_per_param for r in res]),
+        psnr=mean([a['psnr'] for a in aux]),
+        n_visible_anchors=mean([torch.sum(v) for v in visibles]),
+        tile_overflow=biggest([r.bins.tile_overflow for r in res]),
+        pair_overflow=biggest([r.bins.pair_overflow for r in res]),
+        packed_overflow=biggest([r.bins.packed_overflow for r in res]),
+        num_pairs=mean([r.bins.num_pairs for r in res]),
+        skipped=(~ok).to(torch.int32))
+    return model, stats, metrics
+
+
+# --- the device loop ---------------------------------------------------------
+
+class LoopBuffers(NamedTuple):
+    """The static tensors of the device loop, which a captured step reads
+    and writes at the step counter."""
+    cams: CameraArrays        # the run's cameras, stacked [N, ...]
+    gt_images: torch.Tensor   # [N, H, W, 3]
+    gt_depths: torch.Tensor   # [N, H, W]
+    cam_idx: torch.Tensor     # [max_chunk] int64: the chunk's camera draws
+    counter: torch.Tensor     # [1] int64: the chunk's step
+    scalars: torch.Tensor     # [max_chunk, S] float32: Adam.scalar_table
+    metrics: torch.Tensor     # [max_chunk, 13] float64: StepMetrics rows
+
+
+def stack_views(cameras) -> tuple[CameraArrays, torch.Tensor, torch.Tensor]:
+    """``Trainer.run``'s (CameraArrays, gt_image, gt_depth) list -> the
+    cameras, the images and the depths, each stacked on a leading axis (all
+    views share the image shape)."""
+    cams = CameraArrays(*(torch.stack(xs) for xs in
+                          zip(*[c for c, _, _ in cameras])))
+    return (cams, torch.stack([g for _, g, _ in cameras]),
+            torch.stack([d for _, _, d in cameras]))
+
+
+def loop_buffers(cameras, max_chunk: int, optimizer: Adam) -> LoopBuffers:
+    cams, gt_images, gt_depths = stack_views(cameras)
+    dev = gt_images.device
+    return LoopBuffers(
+        cams=cams, gt_images=gt_images, gt_depths=gt_depths,
+        cam_idx=torch.zeros((max_chunk,), dtype=torch.int64, device=dev),
+        counter=torch.zeros((1,), dtype=torch.int64, device=dev),
+        scalars=torch.zeros((max_chunk, len(optimizer.lr) + 4),
+                            dtype=torch.float32, device=dev),
+        metrics=torch.zeros((max_chunk, len(StepMetrics._fields)),
+                            dtype=torch.float64, device=dev))
+
+
+def loop_step(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
+              generator: torch.Generator, model: Model,
+              stats: DensifyStats, buf: LoopBuffers, phase: int,
+              track_stats: bool) -> None:
+    """One step of the device loop (the body of JAX's ``make_train_scan``,
+    loop.py:315-324): the step at ``buf.counter`` takes its camera from
+    ``buf.cam_idx``, its decode noise from ``generator`` and Adam's scalars
+    from ``buf.scalars``; it updates the leaves, the moments and (with
+    ``track_stats``) the statistics in place, writes its ``StepMetrics``
+    into its row of ``buf.metrics`` and advances the counter. Nothing in it
+    waits for the host, so a CUDA graph can capture it."""
+    i = buf.counter
+    ci = buf.cam_idx.index_select(0, i)
+    cam = CameraArrays(*(x.index_select(0, ci)[0] for x in buf.cams))
+    noise = (draw_noise(decoded_rows(model, cfg), cfg, phase, generator,
+                        model.state.device) if phase > 0 else None)
+    _, new_stats, metrics = _step_core(
+        cfg, intr, optimizer, bg, model, stats, cam,
+        buf.gt_images.index_select(0, ci)[0],
+        buf.gt_depths.index_select(0, ci)[0], phase, track_stats, noise,
+        scalars=buf.scalars.index_select(0, i)[0])
+    with torch.no_grad():
+        if track_stats:
+            for old, new in zip(stats, new_stats):
+                old.copy_(new)
+        row = torch.stack([m.to(torch.float64) for m in metrics])
+        buf.metrics.index_copy_(0, i, row[None])
+        buf.counter.add_(1)
+
+
+class StepGraph:
+    """One captured step: the graph, and what a report of the device loop
+    reads (its phase and track_stats, the eager step it was captured after,
+    the host seconds the capture took, each kernel's launches recorded in
+    it, how many times it was replayed, and the device ms of those replays,
+    from CUDA events around each run of replays)."""
+
+    def __init__(self, graph, phase: int, track_stats: bool, step: int,
+                 capture_s: float, launches: dict):
+        self.graph = graph
+        self.record = dict(phase=phase, track_stats=track_stats, step=step,
+                           capture_s=capture_s, launches=launches,
+                           replays=0, replay_ms=0.0)
+        self._events = []
+
+    def replay(self, n: int) -> None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            self.graph.replay()
+        end.record()
+        self._events.append((start, end))
+        self.record['replays'] += n
+
+    def settle(self) -> None:
+        """Add the ms of the replays recorded so far to ``replay_ms``; the
+        caller has waited for them."""
+        for start, end in self._events:
+            self.record['replay_ms'] += start.elapsed_time(end)
+        self._events.clear()
+
+
+def capture_train_step(step_fn, generator: torch.Generator, phase: int,
+                       track_stats: bool, step: int) -> StepGraph:
+    """Record ``step_fn`` (a ``loop_step`` with its arguments bound) as a
+    CUDA graph on the current stream, with a memory pool of its own: the
+    port's ``make_train_scan``. ``generator`` (the decode noise's) is
+    registered with the graph, so each replay draws at the generator's
+    offset of the moment and advances it, as an eager step does. A failed
+    capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    graph.capture_begin()
+    try:
+        step_fn()
+    except BaseException:
+        # end the capture so the stream leaves capture mode, then raise
+        with contextlib.suppress(RuntimeError):
+            graph.capture_end()
+        raise
+    graph.capture_end()
+    capture_s = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    return StepGraph(graph, phase, track_stats, step, capture_s, launches)
+
+
 class Trainer:
     """Host-side orchestration of the optimization (loop.py:333-508), on one
     device. The model's leaves are trained in place, until a densification
-    step grows the capacity and replaces them."""
+    step grows the capacity and replaces them.
+
+    ``dp_batch=B`` makes every step a batch of B views with the mean loss
+    (``make_dp_train_step``), on this one device; ``run`` then takes that
+    path whatever ``device_loop`` says, as the JAX trainer does."""
 
     def __init__(self, model: Model, cfg: GSConfig, intr: Intrinsics,
                  voxel_size: float, spatial_lr_scale: float = 1.0,
                  bg: np.ndarray | None = None, seed: int = 0,
-                 device: str = "cuda"):
+                 device: str = "cuda", dp_batch: int | None = None):
         dev = resolve_device(device)
         if model.state.device != dev:
             raise ValueError(f"model lives on {model.state.device}, "
@@ -246,8 +514,20 @@ class Trainer:
         # the surgery's draws: a numpy Generator of its own, as the JAX
         # trainer's np_rng
         self.densify_rng = np.random.default_rng(seed)
+        self.dp_batch = dp_batch
+        self.dp_step_fn = (make_dp_train_step(cfg, intr, self.optimizer,
+                                              self.bg, self.noise_gen)
+                           if dp_batch else None)
         self.history: list[dict] = []
         self.step = 0
+        # the device loop's CUDA graphs by (phase, track_stats), valid for
+        # the storages in _graph_key; the side stream they run on; and one
+        # record per capture (StepGraph.record), in capture order
+        self._graphs: dict = {}
+        self._graph_key = None
+        self._stream = None
+        self._replayed: list = []      # graphs replayed since the last wait
+        self.graph_log: list[dict] = []
 
     # --- the trainer checkpoint ---
     def save(self, path: str) -> None:
@@ -331,14 +611,32 @@ class Trainer:
                 and it % cfg.update_interval == 0)
 
     def run(self, cameras, iterations: int | None = None,
-            log_every: int = 100, callback=None) -> Model:
+            log_every: int = 100, callback=None, device_loop: bool = False,
+            max_chunk: int = 50) -> Model:
         """cameras: list of (CameraArrays, gt_image [H, W, 3], gt_depth
         [H, W]) on the trainer's device. Resumes from ``self.step + 1``.
         A record (every ``log_every`` steps and the last) carries the
         step's metrics, and ``densify_*`` keys when ``adjust_anchor`` ran
-        on that step."""
+        on that step.
+
+        ``device_loop=True`` runs chunks of up to ``max_chunk`` steps (the
+        JAX trainer's ``make_train_scan``): on the card a CUDA graph of the
+        step replayed back to back, one host read of the metrics a chunk.
+        A chunk ends at every phase change, stat-tracking flip, bounds
+        refresh and densification step, so the host's work runs where the
+        host loop runs it, and the run ends on the host loop's state bit
+        for bit. A record inside a chunk is emitted after the chunk, with
+        the trainer at the chunk's last step (a checkpoint written from the
+        callback holds that step). A capture or replay that fails raises;
+        nothing falls back to the host loop. All views must share one
+        image shape."""
         cfg = self.cfg
         iterations = iterations or cfg.iterations
+        if self.dp_batch:
+            return self._run_dp(cameras, iterations, log_every, callback)
+        if device_loop:
+            return self._run_device_loop(cameras, iterations, log_every,
+                                         callback, max_chunk)
         for it in range(self.step + 1, iterations + 1):
             self.step = it
             cam, gt_image, gt_depth = cameras[int(
@@ -358,6 +656,157 @@ class Trainer:
             if it % log_every == 0 or it == iterations:
                 self._emit_record(it, metrics._asdict(), info, callback)
         return self.model
+
+    def _run_dp(self, cameras, iterations, log_every, callback) -> Model:
+        """The batched host loop (loop.py:510-563): the whole cadence
+        (phase, bounds refresh, stat tracking, densify pause and
+        ``adjust_anchor``), ``dp_batch`` views a step drawn from the camera
+        stream."""
+        cfg = self.cfg
+        cams, gt_images, gt_depths = stack_views(cameras)
+        for it in range(self.step + 1, iterations + 1):
+            self.step = it
+            idx = self.rng.integers(len(cameras), size=self.dp_batch)
+            if it == cfg.context_from_step:
+                self.model = self.model._replace(
+                    bounds=update_anchor_bounds(self.model.state))
+            track = cfg.start_stat < it < cfg.update_until
+            self.model, self.stats, metrics = self.dp_step_fn(
+                self.model, self.stats, cams, gt_images, gt_depths, idx,
+                phase=phase_of_step(it, cfg), track_stats=track)
+            info = None
+            if self._densify_due(it):
+                self.model, self.stats, info = densify.adjust_anchor(
+                    self.model, self.stats, self.optimizer, cfg,
+                    self.voxel_size, self.densify_rng)
+            if it % log_every == 0 or it == iterations:
+                self._emit_record(it, metrics._asdict(), info, callback)
+        return self.model
+
+    def _chunk_end(self, it: int, iterations: int, max_chunk: int) -> int:
+        """Largest end step e >= it such that steps [it, e] share phase and
+        track_stats, no bounds-update start falls strictly inside, and any
+        densification step lands exactly at e (loop.py:565-588)."""
+        cfg = self.cfg
+        e = min(iterations, it + max_chunk - 1)
+        # phase changes AFTER noise_from_step / context_from_step
+        for b in (cfg.noise_from_step, cfg.context_from_step):
+            if it <= b:
+                e = min(e, b)
+        # the bounds refresh must run right before step context_from_step
+        if it < cfg.context_from_step:
+            e = min(e, cfg.context_from_step - 1)
+        # track_stats flips after start_stat and at update_until
+        if it <= cfg.start_stat:
+            e = min(e, cfg.start_stat)
+        elif it < cfg.update_until:
+            e = min(e, cfg.update_until - 1)
+        # densification (host surgery) may trigger at any multiple of
+        # update_interval: make that a chunk end
+        nxt = -(-it // cfg.update_interval) * cfg.update_interval
+        if nxt <= e:
+            e = nxt
+        return e
+
+    def _run_device_loop(self, cameras, iterations, log_every, callback,
+                         max_chunk) -> Model:
+        """The chunked loop (loop.py:590-636)."""
+        cfg = self.cfg
+        buf = loop_buffers(cameras, max_chunk, self.optimizer)
+        it = self.step + 1
+        while it <= iterations:
+            phase = phase_of_step(it, cfg)
+            if it == cfg.context_from_step:
+                self.model = self.model._replace(
+                    bounds=update_anchor_bounds(self.model.state))
+            track = cfg.start_stat < it < cfg.update_until
+            e = self._chunk_end(it, iterations, max_chunk)
+            self._run_chunk(buf, phase, track, e - it + 1, len(cameras))
+            self.step = e
+            info = None
+            if self._densify_due(e):
+                self.model, self.stats, info = densify.adjust_anchor(
+                    self.model, self.stats, self.optimizer, cfg,
+                    self.voxel_size, self.densify_rng)
+            log_its = [s for s in range(it, e + 1)
+                       if s % log_every == 0 or s == iterations]
+            if log_its:
+                rows = buf.metrics.cpu().numpy()
+                for graph in self._replayed:
+                    graph.settle()
+                self._replayed.clear()
+                for s in log_its:
+                    self._emit_record(
+                        s, dict(zip(StepMetrics._fields, rows[s - it])),
+                        info if s == e else None, callback)
+            it = e + 1
+        return self.model
+
+    def _run_chunk(self, buf: LoopBuffers, phase: int, track: bool, n: int,
+                   n_cams: int) -> None:
+        """n steps of one phase and track_stats: the camera draws (one
+        ``integers`` call a step, as the host loop's) and Adam's scalars
+        copied into ``buf`` once, the counter reset, then the steps. On
+        the card the first step under a new graph runs eagerly on the side
+        stream, the graph is captured there, and it is replayed for the
+        rest; on the CPU every step runs eagerly."""
+        draws = [int(self.rng.integers(n_cams)) for _ in range(n)]
+        buf.cam_idx[:n].copy_(torch.tensor(draws, dtype=torch.int64))
+        buf.scalars[:n].copy_(torch.from_numpy(
+            self.optimizer.scalar_table(n)))
+        buf.counter.zero_()
+        step_fn = functools.partial(
+            loop_step, self.cfg, self.intr, self.optimizer, self.bg,
+            self.noise_gen, self.model, self.stats, buf, phase, track)
+        dev = self.bg.device
+        if dev.type != "cuda":
+            for _ in range(n):
+                step_fn()
+        else:
+            self._replay_chunk(step_fn, buf, phase, track, n)
+        self.optimizer.count += n
+
+    def _replay_chunk(self, step_fn, buf, phase, track, n) -> None:
+        dev = self.bg.device
+        key = self._storage_key(buf)
+        if key != self._graph_key:
+            # the host replaced a tensor that a graph reads (the bounds
+            # refresh, adjust_anchor, restore, a new run's views)
+            self._graphs.clear()
+            self._graph_key = key
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        main = torch.cuda.current_stream(dev)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            graph = self._graphs.get((phase, track))
+            done = 0
+            if graph is None:
+                # the first step under a new graph runs eagerly: it warms
+                # up what a capture needs (kernels, constants, workspaces)
+                step_fn()
+                done = 1
+                if n > 1:
+                    graph = capture_train_step(step_fn, self.noise_gen,
+                                               phase, track, self.step + 1)
+                    self._graphs[phase, track] = graph
+                    self.graph_log.append(graph.record)
+            if n > done:
+                graph.replay(n - done)
+                self._replayed.append(graph)
+        main.wait_stream(self._stream)
+
+    def _storage_key(self, buf: LoopBuffers) -> tuple:
+        """The address and shape of every tensor a captured step reads or
+        writes in place: the model's leaves, Adam's moments, the
+        statistics and the loop's buffers."""
+        m = self.model
+        tensors = [*m.state.flat_leaves().values(),
+                   *m.heads.parameters(), *m.grid.values(), *m.bounds,
+                   *self.optimizer.m, *self.optimizer.v, *self.stats,
+                   *buf.cams, buf.gt_images, buf.gt_depths, buf.cam_idx,
+                   buf.counter, buf.scalars, buf.metrics]
+        return tuple((t.data_ptr(), tuple(t.shape)) for t in tensors)
 
     def _emit_record(self, it, metric_items, info, callback):
         cfg = self.cfg

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import device_constant
+
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
@@ -58,7 +60,7 @@ def _depthwise_conv(img: torch.Tensor, window: np.ndarray) -> torch.Tensor:
     """img [H, W, C] -> the same-padded (zeros) depthwise conv, [H, W, C]."""
     k = window.shape[0]
     c = img.shape[-1]
-    w = torch.as_tensor(window, device=img.device).expand(c, 1, k, k)
+    w = device_constant(window, img.device).expand(c, 1, k, k)
     out = F.conv2d(img.permute(2, 0, 1)[None], w, padding=k // 2, groups=c)
     return out[0].permute(1, 2, 0)
 

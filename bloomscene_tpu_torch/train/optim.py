@@ -14,6 +14,13 @@ taken from ``torch.optim.Adam``, so that it follows optax step for step:
 - ``m = (1 - b1) g + b1 m``, ``v = (1 - b2) g^2 + b2 v``,
   ``p += -lr * m_hat / (sqrt(v_hat) + eps)``.
 
+The device loop (``train/loop.py``) replays a CUDA graph of the step,
+which would bake one step's Python floats into every replay. For it,
+``scalar_table`` computes a chunk's learning rates and bias corrections
+on the host, in float32 exactly as ``step`` does, and ``step(grads,
+scalars=row)`` reads them from a device row of that table and leaves the
+count to the caller.
+
 ``rotation``, ``opacity_raw``, ``alive`` and the anchor bounds are the
 ``FROZEN`` group: never updated, as the reference's requires_grad_(False)
 parameters (:477-478). Parameters and moments are updated in place.
@@ -66,6 +73,17 @@ def schedules(cfg: GSConfig, spatial_lr_scale: float = 1.0) -> dict:
         'mlp_featurebank': sched('mlp_featurebank')}
 
 
+def _unbias(x: torch.Tensor, bc, inv_bc) -> torch.Tensor:
+    """``x / bc`` as the update divides by a Python float ``bc`` (when
+    ``inv_bc`` is None), or the same bits from the device scalars ``bc``
+    and ``inv_bc`` (its float32 reciprocal): torch divides a CUDA tensor
+    by a host float as a product with the float's float32 reciprocal, and
+    a CPU tensor by true division."""
+    if inv_bc is None:
+        return x / bc
+    return x * inv_bc if x.is_cuda else x / bc
+
+
 def make_trainable(model: Model) -> Model:
     """The same model with every trained leaf requiring grad: the anchor
     state's trained leaves become new leaf tensors on the same storage, the
@@ -105,23 +123,52 @@ class Adam:
         self.v = [torch.zeros_like(t) for _, _, t in self.params]
         self.count = 0
 
+    def _scalars(self, count: int) -> tuple[dict, float, float]:
+        """The learning rate of each group and the bias corrections of the
+        update that takes the count from ``count`` to ``count + 1``:
+        float32 values (as optax computes them) held in Python floats."""
+        lrs = {g: float(fn(count)) for g, fn in self.lr.items()}
+        f32 = torch.float32
+        bc1 = float(1 - torch.tensor(B1, dtype=f32) ** (count + 1))
+        bc2 = float(1 - torch.tensor(B2, dtype=f32) ** (count + 1))
+        return lrs, bc1, bc2
+
+    def scalar_table(self, n: int) -> np.ndarray:
+        """[n, len(self.lr) + 4] float32: for each of the next ``n``
+        updates (from ``self.count`` on), the groups' learning rates in
+        ``self.lr`` order, then bc1, bc2, and their float32 reciprocals.
+        A row on the device is what ``step(grads, scalars=row)`` reads."""
+        rows = []
+        for count in range(self.count, self.count + n):
+            lrs, bc1, bc2 = self._scalars(count)
+            inv = np.float32(1.0) / np.float32([bc1, bc2])
+            rows.append([*lrs.values(), bc1, bc2, *inv])
+        return np.asarray(rows, np.float32).reshape(n, len(self.lr) + 4)
+
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor]) -> None:
+    def step(self, grads: list[torch.Tensor],
+             scalars: torch.Tensor | None = None) -> None:
+        """One update. ``scalars``, a row of ``scalar_table`` on the
+        parameters' device, gives the learning rates and bias corrections
+        in place of the ones from ``self.count``, which is then left as it
+        is: the caller counts the updates."""
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for "
                              f"{len(self.params)} parameters")
-        # the scalars are float32 values (as optax computes them) held in
-        # Python floats, so no host-to-device copy stalls the stream
-        lrs = {g: float(fn(self.count)) for g, fn in self.lr.items()}
-        self.count += 1
-        f32 = torch.float32
-        bc1 = float(1 - torch.tensor(B1, dtype=f32) ** self.count)
-        bc2 = float(1 - torch.tensor(B2, dtype=f32) ** self.count)
+        if scalars is None:
+            # Python floats: no host-to-device copy stalls the stream
+            lrs, bc1, bc2 = self._scalars(self.count)
+            inv1 = inv2 = None
+            self.count += 1
+        else:
+            lrs = dict(zip(self.lr, scalars.unbind(0)))
+            bc1, bc2, inv1, inv2 = scalars[len(self.lr):].unbind(0)
         for (_, group, p), g, m, v in zip(self.params, grads, self.m,
                                           self.v):
             m.copy_((1 - B1) * g + B1 * m)
             v.copy_((1 - B2) * (g * g) + B2 * v)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+            u = (_unbias(m, bc1, inv1)
+                 / (torch.sqrt(_unbias(v, bc2, inv2)) + EPS))
             p.add_(-lrs[group] * u)
 
     def state_arrays(self) -> dict:

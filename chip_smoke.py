@@ -141,6 +141,35 @@ nonzero:
    in-memory decoded model bit for bit, and no decoded frame overflows;
    the decoded orbit's fps. Then K3, K4 and K1 on its first decoded
    frame's inputs, as phase 15.
+22. device_loop: a fresh Trainer on the perturbed model at SCHEDULE, run by
+   the device loop (``Trainer.run(device_loop=True)``, chunks of
+   LOOP_CHUNK: a CUDA graph of the step, captured after the first step of
+   each (phase, track_stats) and replayed; chunk ends at every phase
+   change and surgery), with every counter set to 0 just before and read
+   just after: every model leaf, Adam's moments and count, the
+   statistics, the three generators' states and every record equal the
+   host loop's of phase 10 at step 40 (a snapshot written after phase 10)
+   bit for bit. A wrapper counts its calls, so a captured launch counts
+   once at the capture: each kernel's launches are the captures' launches
+   times their replays plus the eager steps'; each capture must hold K2
+   once, K1, K3 and K4 twice (remat) and hashgrid_bwd 4 times in phase 2,
+   and the run must launch them as often as the host loop. Step ms by
+   phase (chunk seconds over steps, mean and median, and the device ms a
+   replayed step) beside the host loop's of phase 10, the captures and
+   their seconds, the replays, the peak memory.
+23. device_loop_growth: the growth phase's scene (no free slot) for
+   GROWTH_LOOP_STEPS steps with the host loop and with the device loop:
+   the surgery at step 20 grows the capacity, a graph is captured at the
+   grown shape, and the two runs are bitwise equal, records included.
+24. dp: ``Trainer(dp_batch=DP_BATCH)`` at full width over the 8 orbit
+   views, DP_STEPS phase-0 steps: the loss falls, K2 once a view; then one
+   batched step over DP_BATCH copies of one view against one single-view
+   step (tests/test_parallel.py's property: loss rtol 1e-5, leaves atol
+   1e-5 and rtol 1e-4, anchor_demon's maximum DP_BATCH); ms a step and a
+   view.
+25. fit_single_view: ``examples.fit_single_view.fit(steps=FIT_STEPS)``
+   with the host loop and with the device loop: the last loss bit for
+   bit, the render improved by both, their wall seconds.
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
 K4 at the render's shapes with their training, post-schedule, decoded,
@@ -148,7 +177,8 @@ grown, pipeline and cold-start shapes under ``train_shape``,
 ``schedule_shape``, ``decoded_shape``, ``growth_shape``, ``pipeline_shape``
 and ``cold_start_shape``, K2 at the training shape with its schedule,
 growth and pipeline shapes, hashgrid_bwd at a phase-2 step's; launches of the render, train, schedule, decoded orbit and growth
-paths, the pipeline and the cold start; the ptxas report of each:
+paths, the pipeline, the cold start, the device loop and its growth run
+(graph replays counted), the batched trainer and fit_single_view; the ptxas report of each:
 registers, static shared memory, spill bytes; for K1 and K2 also the
 block shape and dynamic shared memory), the one before it
 the card's name and power limit; the last line is
@@ -209,6 +239,18 @@ GOLDEN_GRAD_ATOL, GOLDEN_GRAD_RTOL = 2e-5, 2e-3
 GROWTH = dict(voxel_size=0.03, use_dpr=True, start_stat=0, iterations=20,
               update_from=10, update_interval=10, update_until=30)
 AB_STEPS = 5                   # phase-2 steps a run of phase 19
+# phases 22-23: the device loop's chunk (chunk ends fall at every phase
+# change and surgery of SCHEDULE and GROWTH), and the growth run's steps:
+# the surgery at step 20 grows the capacity, then 4 steps at the grown
+# shape
+LOOP_CHUNK = 10
+GROWTH_LOOP_STEPS = 24
+# phase 24: the batched trainer's views a step and steps
+DP_BATCH = 4
+DP_STEPS = 10
+# phase 25: fit_single_view's steps, host loop and device loop
+FIT_STEPS = 100
+FORWARD_KERNELS = ("pair_expansion", "slab_expansion", "blend_forward")
 RESUME_SAVE_AT = 25            # the schedule's trainer checkpoint (phase 2)
 # phase 20: the CLI as a user runs it, at the model's full default widths,
 # at 128x128: at 256x256 generation (host numpy and scipy) took the whole
@@ -797,7 +839,10 @@ def train_kernel_checks(trainer, cfg, views, phase: int = 0):
        not of itself. In each of the ten rows at least K2_RESOLVED_SHARE of
        the nonzero entries must have a tolerance below a tenth of their
        value, and planted faults (each row zeroed in turn, the depth row
-       shifted by one slot) must fail this check."""
+       shifted by one slot) must fail this check. A row that the plain
+       version gives as zero everywhere (the depth row where the loss has
+       no depth term) must be zero everywhere in the kernel's result too;
+       no fault can be planted there by zeroing or shifting it."""
     from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
                                                      blend_backward_plain,
                                                      blend_walk)
@@ -823,28 +868,32 @@ def train_kernel_checks(trainer, cfg, views, phase: int = 0):
     def close(x):
         return bool(((x - want).abs() <= tol).all())
 
-    per_row, caught = {}, {}
+    per_row, caught, zero_rows = {}, {}, {}
     bad = got.clone()
     for c, nm in enumerate(K2_ROWS):
         mag = want[c].abs()
         nz = mag > 0
+        if not nz.any():
+            zero_rows[nm] = not bool(got[c].any())
+            continue
         per_row[nm] = dict(
             nonzero=int(nz.sum()),
-            median_nonzero=float(mag[nz].median()) if nz.any() else 0.0,
+            median_nonzero=float(mag[nz].median()),
             max=float(mag.max()), max_abs_err=max_abs(got[c], want[c]),
-            resolved_share=float((10 * tol[c][nz] < mag[nz]).double().mean())
-            if nz.any() else 0.0)
+            resolved_share=float((10 * tol[c][nz] < mag[nz]).double()
+                                 .mean()))
         bad[c] = 0.0
         caught[f"{nm} zeroed"] = not close(bad)
         bad[c] = got[c]
-    bad[6] = torch.roll(got[6], 1, dims=0)
-    caught["d depth shifted one slot"] = not close(bad)
-    resolved = all(v["resolved_share"] >= K2_RESOLVED_SHARE
-                   for v in per_row.values())
+    if "d depth" in per_row:
+        bad[6] = torch.roll(got[6], 1, dims=0)
+        caught["d depth shifted one slot"] = not close(bad)
+    resolved = bool(per_row) and all(
+        v["resolved_share"] >= K2_RESOLVED_SHARE for v in per_row.values())
     within = close(got)
     deterministic = torch.equal(got, again)
     k2_ok = (natural and within and deterministic and resolved
-             and all(caught.values()))
+             and all(caught.values()) and all(zero_rows.values()))
 
     t_bytes, by = k2_bound(counts_p, ncon, tile, cap)
     walk = blend_walk(counts_p, ncon)
@@ -858,6 +907,8 @@ def train_kernel_checks(trainer, cfg, views, phase: int = 0):
         max_tolerance_used=float(((got - want).abs() / tol).max()),
         cotangent_scale=scale, atol=GRAD_ATOL, rtol=GRAD_RTOL,
         rows=per_row, rows_resolved=resolved, planted_faults_caught=caught,
+        # rows the plain version gives as zero: True where the kernel's are
+        zero_rows=zero_rows,
         deterministic=deterministic,
         ms=time_ms(lambda: blend_backward(*args), 20),
         plain_ms=time_ms(lambda: blend_backward_plain(*args), 1),
@@ -1474,18 +1525,11 @@ def golden_check(size: int = 64, n: int = 400, device: str = "cuda"):
                 grad_atol=GOLDEN_GRAD_ATOL, grad_rtol=GOLDEN_GRAD_RTOL), ok
 
 
-def growth_phase(model, cams, frames, depths, voxel: float, counters: dict,
-                 device: str = "cuda"):
-    """A Trainer on the perturbed ``model`` cut to its alive anchors (no
-    free slot), run to GROWTH's densification step, which must grow the
-    capacity; the optimizer's list must hold the model's live leaves and
-    one more step must change them."""
-    from bloomscene_tpu_torch.config import GSConfig
+def no_free_slot(model, cams, frames, depths, device: str = "cuda"):
+    """A copy of ``model`` cut to its alive anchors (no free slot), with
+    its bounds, and the views of ``frames``/``depths`` on ``device``."""
     from bloomscene_tpu_torch.convert import model_to
     from bloomscene_tpu_torch.models.anchors import update_anchor_bounds
-    from bloomscene_tpu_torch.train.loop import Trainer
-    from bloomscene_tpu_torch.train.optim import param_groups
-    cfg = GSConfig(**GROWTH)
     dev = torch.device(device)
     model = model_to(model, dev)
     n = model.state.num_alive()
@@ -1495,6 +1539,21 @@ def growth_phase(model, cams, frames, depths, voxel: float, counters: dict,
     views = [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
               torch.as_tensor(d, device=dev))
              for c, f, d in zip(cams, frames, depths)]
+    return model, views
+
+
+def growth_phase(model, cams, frames, depths, voxel: float, counters: dict,
+                 device: str = "cuda"):
+    """A Trainer on the perturbed ``model`` cut to its alive anchors (no
+    free slot), run to GROWTH's densification step, which must grow the
+    capacity; the optimizer's list must hold the model's live leaves and
+    one more step must change them."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.train.loop import Trainer
+    from bloomscene_tpu_torch.train.optim import param_groups
+    cfg = GSConfig(**GROWTH)
+    model, views = no_free_slot(model, cams, frames, depths, device)
+    n = model.state.num_alive()
     trainer = Trainer(perturbed(model, SEED), cfg, cams[0].intrinsics, voxel,
                       seed=SEED, device=device)
     capacity0 = trainer.model.state.capacity
@@ -1640,6 +1699,348 @@ def phase2_ab(trainer, views, counters: dict):
     return out, True
 
 
+def loop_launches(counts: dict, graph_log: list) -> dict:
+    """Each kernel's launches in a device-loop run. A wrapper counts its
+    Python calls, so ``counts`` holds the eager steps' launches and each
+    capture's once; a captured launch runs once a replay of its graph."""
+    out = dict(counts)
+    for g in graph_log:
+        for name, n in g["launches"].items():
+            out[name] += n * (g["replays"] - 1)
+    return out
+
+
+def record_differences(a: list, b: list) -> list[str]:
+    """``iteration:key`` of every record entry that differs between two
+    runs' records (the surgery's wall time aside)."""
+    if [r["iteration"] for r in a] != [r["iteration"] for r in b]:
+        return ["iterations"]
+    return [f"{ra['iteration']}:{k}" for ra, rb in zip(a, b)
+            for k in sorted(set(ra) | set(rb))
+            if k != "densify_time_s" and ra.get(k) != rb.get(k)]
+
+
+def device_loop_run(trainer, views, iterations: int, counters: dict):
+    """``trainer.run(device_loop=True, max_chunk=LOOP_CHUNK)`` to step
+    ``iterations``, a record each step, with every launch counter set to 0
+    just before and read just after -> (records, chunks, launches with the
+    graphs' replays, wall seconds, peak device bytes, caught warnings). A
+    chunk's records come together after its one read of the metrics, so a
+    chunk's seconds run from the previous chunk's records to its own (its
+    surgery included, as a host-loop step's ms include it)."""
+    import warnings
+    records, stamps = [], []
+    timed = trainer.bg.device.type == "cuda"
+
+    def on_step(rec):
+        records.append(rec)
+        stamps.append(time.perf_counter())
+
+    if timed:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    first = trainer.step + 1
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        trainer.run(views, iterations=iterations, log_every=1,
+                    callback=on_step, device_loop=True, max_chunk=LOOP_CHUNK)
+        if timed:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    chunks, it, last = [], first, t0
+    while it <= iterations:
+        e = trainer._chunk_end(it, iterations, LOOP_CHUNK)
+        t = stamps[it - first]
+        chunks.append({"first": it, "last": e, "seconds": t - last})
+        it, last = e + 1, t
+    peak = torch.cuda.max_memory_allocated() if timed else None
+    return (records, chunks, loop_launches(counts, trainer.graph_log), wall,
+            peak, caught)
+
+
+def loop_step_ms(chunks: list, graph_log: list, cfg) -> dict:
+    """For each training phase of a device-loop run: the mean and median
+    over its chunks of chunk seconds over steps, and the phase's chunk
+    seconds over its steps (``wall_ms``, the wall time a step as the host
+    loop's mean counts it; all three with the eager first step and the
+    capture of a new graph included), and the device ms a replayed step
+    (the replays' CUDA-event ms over their count), in ms."""
+    from bloomscene_tpu_torch.train.loop import phase_of_step
+    out = {}
+    for p in (0, 1, 2):
+        mine = [c for c in chunks if phase_of_step(c["first"], cfg) == p]
+        t = [1e3 * c["seconds"] / (c["last"] - c["first"] + 1)
+             for c in mine]
+        steps = sum(c["last"] - c["first"] + 1 for c in mine)
+        graphs = [g for g in graph_log if g["phase"] == p]
+        replays = sum(g["replays"] for g in graphs)
+        out[p] = {"chunks": len(t), "steps": steps,
+                  "wall_ms": (1e3 * sum(c["seconds"] for c in mine) / steps
+                              if steps else None),
+                  "mean_ms": float(np.mean(t)) if t else None,
+                  "median_ms": float(np.median(t)) if t else None,
+                  "replays": replays,
+                  "replay_ms": (sum(g["replay_ms"] for g in graphs) / replays
+                                if replays else None)}
+    return out
+
+
+def graph_checks(graph_log: list, per_forward: int) -> bool:
+    """Every captured step holds K2 once, K1, K3 and K4 once a forward,
+    and hashgrid_bwd four times in phase 2 (none before)."""
+    return bool(graph_log) and all(
+        g["replays"] > 0 and g["launches"]["blend_backward"] == 1
+        and all(g["launches"][k] == per_forward for k in FORWARD_KERNELS)
+        and g["launches"]["hashgrid_bwd"] == (4 if g["phase"] == 2 else 0)
+        for g in graph_log)
+
+
+def device_loop_phase(model, cams, frames, depths, voxel: float,
+                      counters: dict, reference, host_records: list,
+                      host_summary: dict, device: str = "cuda"):
+    """A fresh Trainer on the perturbed model at SCHEDULE, run by the
+    device loop in chunks of LOOP_CHUNK: every model leaf, Adam's moments
+    and count, the statistics, the three generators' states and every
+    record must equal the schedule phase's host loop at step 40
+    (``reference``, its snapshot), bit for bit; each capture must hold the
+    step's kernels, and the kernels must run as often as in the host loop.
+    Step ms by phase beside the host loop's of this call, the captures,
+    replays and peak memory."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.train.loop import Trainer, phase_of_step
+    cfg = GSConfig(**SCHEDULE)
+    dev = torch.device(device)
+    views = [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
+              torch.as_tensor(d, device=dev))
+             for c, f, d in zip(cams, frames, depths)]
+    trainer = Trainer(perturbed(model, SEED), cfg, cams[0].intrinsics, voxel,
+                      seed=SEED, device=device)
+    records, chunks, launches, wall, peak, caught = device_loop_run(
+        trainer, views, cfg.iterations, counters)
+    diff = trainer_differences(reference, trainer)
+    rec_diff = record_differences(host_records, records)
+    graphs = trainer.graph_log
+    n = cfg.iterations
+    per_forward = 2 if cfg.remat else 1
+    p2 = sum(phase_of_step(i, cfg) == 2 for i in range(1, n + 1))
+    checks = {
+        "steps": len(records) == n,
+        "bitwise_equal_to_host_loop": not diff,
+        "records_equal_to_host_loop": not rec_diff,
+        "graphs_hold_the_step_kernels": graph_checks(graphs, per_forward),
+        "blend_backward_once_per_step": launches["blend_backward"] == n,
+        "forward_kernels_once_per_forward": all(
+            launches[k] == per_forward * n for k in FORWARD_KERNELS),
+        "hashgrid_bwd_four_per_phase2_step":
+            launches["hashgrid_bwd"] == 4 * p2,
+    }
+    host = host_summary["step_ms_by_phase"]
+    summary = {
+        "steps": len(records), "max_chunk": LOOP_CHUNK, "wall_s": wall,
+        "step_ms_by_phase": {p: {"device_loop": v, "host_loop": host[p]}
+                             for p, v in loop_step_ms(chunks, graphs,
+                                                      cfg).items()},
+        "chunks": chunks, "captures": len(graphs),
+        "capture_s": [g["capture_s"] for g in graphs],
+        "replays": sum(g["replays"] for g in graphs),
+        "eager_steps": n - sum(g["replays"] for g in graphs),
+        "graphs": graphs, "launches": launches,
+        "peak_mem_bytes": peak,
+        "host_loop_peak_mem_bytes": host_summary["peak_mem_bytes"],
+        "differences": diff, "record_differences": rec_diff[:20],
+        "warnings": len(caught), "checks": checks}
+    return summary, all(checks.values())
+
+
+def device_loop_growth_phase(model, cams, frames, depths, voxel: float,
+                             counters: dict, device: str = "cuda"):
+    """The growth phase's scene (no free slot) for GROWTH_LOOP_STEPS steps,
+    twice: the host loop and the device loop. The surgery at step 20 must
+    grow the capacity, a graph must be captured at the grown shape, and
+    the two runs must be bitwise equal at the end, records included."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.train.loop import Trainer
+    cfg = GSConfig(**dict(GROWTH, iterations=GROWTH_LOOP_STEPS))
+    base, views = no_free_slot(model, cams, frames, depths, device)
+    capacity0 = base.state.capacity
+    runs = {}
+    for loop in (False, True):
+        trainer = Trainer(perturbed(model_to(base, base.state.device), SEED),
+                          cfg, cams[0].intrinsics, voxel, seed=SEED,
+                          device=device)
+        if loop:
+            records, chunks, launches, wall, peak, _ = device_loop_run(
+                trainer, views, cfg.iterations, counters)
+        else:
+            records, _, launches, wall, peak, _ = timed_run(
+                trainer, views, cfg.iterations, counters)
+        runs[loop] = (trainer, records, launches, wall)
+    (host, host_rec, host_launches, host_wall), \
+        (dl, dl_rec, dl_launches, dl_wall) = runs[False], runs[True]
+    dens = [r for r in dl_rec if "densify_capacity" in r]
+    diff = trainer_differences(host, dl)
+    rec_diff = record_differences(host_rec, dl_rec)
+    n = cfg.iterations
+    checks = {
+        "densified_at_20": [r["iteration"] for r in dens] == [20],
+        "capacity_grown": dl.model.state.capacity > capacity0,
+        "graph_at_grown_shape": any(g["step"] > 20 for g in dl.graph_log),
+        "bitwise_equal_to_host_loop": not diff,
+        "records_equal_to_host_loop": not rec_diff,
+        "graphs_hold_the_step_kernels": graph_checks(dl.graph_log, 2),
+        "launches_as_host_loop": dl_launches == host_launches,
+        "blend_backward_once_per_step": dl_launches["blend_backward"] == n,
+    }
+    summary = {"anchors_start": base.state.num_alive(),
+               "capacity_start": capacity0,
+               "capacity_end": dl.model.state.capacity, "steps": n,
+               "host_loop_wall_s": host_wall, "device_loop_wall_s": dl_wall,
+               "chunks": chunks, "graphs": dl.graph_log,
+               "launches": dl_launches, "host_launches": host_launches,
+               "differences": diff, "record_differences": rec_diff[:20],
+               "checks": checks}
+    return summary, all(checks.values())
+
+
+def dp_phase(model, cams, frames, depths, voxel: float, counters: dict,
+             device: str = "cuda"):
+    """``Trainer(dp_batch=DP_BATCH)`` on the perturbed model at full width
+    (the train phase's config, the 8 orbit views), DP_STEPS phase-0 steps:
+    the loss falls and K2 runs once a view. Then tests/test_parallel.py's
+    identical-views property on the card: one batched step over DP_BATCH
+    copies of one view equals one single-view step (loss rtol 1e-5, leaves
+    atol 1e-5 and rtol 1e-4) and the busiest anchor counts DP_BATCH
+    views."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models import densify
+    from bloomscene_tpu_torch.train.loop import (Trainer, make_dp_train_step,
+                                                 make_train_step, stack_views)
+    from bloomscene_tpu_torch.train.optim import Adam, make_trainable
+    cfg = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)
+    dev = torch.device(device)
+    views = [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
+              torch.as_tensor(d, device=dev))
+             for c, f, d in zip(cams, frames, depths)]
+    start = perturbed(model_to(model, dev), SEED)
+    trainer = Trainer(model_to(start, dev), cfg, cams[0].intrinsics, voxel,
+                      seed=SEED, device=device, dp_batch=DP_BATCH)
+    records, ms, launches, wall, peak, caught = timed_run(
+        trainer, views, DP_STEPS, counters)
+    losses = [r["loss"] for r in records]
+    step_ms = float(np.median(ms[1:])) if ms[0] is not None else None
+
+    intr, bg = cams[0].intrinsics, torch.zeros(3, device=dev)
+    single = make_trainable(model_to(start, dev))
+    batched = make_trainable(model_to(start, dev))
+    adam_1, adam_b = Adam(cfg, 1.0, single), Adam(cfg, 1.0, batched)
+    _, _, met_1 = make_train_step(cfg, intr, adam_1, bg)(
+        single, densify.init_stats(single.state.capacity, cfg.n_offsets,
+                                   dev), *views[0], phase=0,
+        track_stats=True)
+    _, stats_b, met_b = make_dp_train_step(cfg, intr, adam_b, bg)(
+        batched, densify.init_stats(batched.state.capacity, cfg.n_offsets,
+                                    dev), *stack_views(views[:1]),
+        [0] * DP_BATCH, phase=0, track_stats=True)
+    loss_1, loss_b = float(met_1.loss), float(met_b.loss)
+    leaf_err = {name: max_abs(b.detach(), a.detach())
+                for (name, _, a), (_, _, b) in zip(adam_1.params,
+                                                   adam_b.params)}
+    leaves_close = all(torch.allclose(b.detach(), a.detach(), atol=1e-5,
+                                      rtol=1e-4)
+                       for (_, _, a), (_, _, b) in zip(adam_1.params,
+                                                       adam_b.params))
+    checks = {
+        "steps": len(records) == DP_STEPS,
+        "finite": all(np.isfinite(losses)),
+        "no_skipped_update": all(r["skipped"] == 0 for r in records),
+        "loss_falls": float(np.mean(losses[-5:])) < float(np.mean(losses[:5])),
+        "blend_backward_once_per_view":
+            launches["blend_backward"] == DP_BATCH * DP_STEPS,
+        "forward_kernels_once_per_forward": all(
+            launches[k] == 2 * DP_BATCH * DP_STEPS for k in FORWARD_KERNELS),
+        "identical_views_loss": abs(loss_b - loss_1) <= 1e-5 * abs(loss_1),
+        "identical_views_leaves": leaves_close,
+        "identical_views_demon": float(stats_b.anchor_demon.max())
+        == float(DP_BATCH),
+    }
+    summary = {
+        "batch": DP_BATCH, "steps": len(records), "wall_s": wall,
+        "step_ms": ms, "step_ms_median": step_ms,
+        "view_ms_median": step_ms and step_ms / DP_BATCH,
+        "loss_first5": float(np.mean(losses[:5])),
+        "loss_last5": float(np.mean(losses[-5:])),
+        "launches": launches, "peak_mem_bytes": peak,
+        "warnings": len(caught),
+        "identical_views": {"loss_single": loss_1, "loss_batched": loss_b,
+                            "worst_leaf": max(leaf_err, key=leaf_err.get),
+                            "worst_leaf_max_abs_err": max(leaf_err.values()),
+                            "anchor_demon_max":
+                                float(stats_b.anchor_demon.max())},
+        "checks": checks}
+    return summary, all(checks.values())
+
+
+def fit_phase(workdir: str, counters: dict):
+    """``examples.fit_single_view.fit(steps=FIT_STEPS)`` on the card with
+    the host loop and with the device loop (its printing sent to a log in
+    ``workdir``), every launch counter set to 0 just before each and read
+    just after: the same last loss bit for bit, the render improved by
+    both, the wall seconds of both and the device ms a replayed step.
+    Then K3, K4, K1 and K2 against their plain versions on the inputs of
+    one training step of the host loop's trained trainer, at this path's
+    own shapes (128 x 128, 2,048 slots a tile, the shell at voxel 0.08)."""
+    from bloomscene_tpu_torch.examples import fit_single_view
+    from bloomscene_tpu_torch.train.loop import phase_of_step
+    out, trained = {}, None
+    for loop in (False, True):
+        name = "device_loop" if loop else "host_loop"
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with open(os.path.join(workdir, f"fit_{name}.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            r = fit_single_view.fit(steps=FIT_STEPS, device="cuda",
+                                    device_loop=loop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        trainer, views = r.pop("trainer"), r.pop("views")
+        if not loop:
+            trained = (trainer, views)
+        replays = sum(g["replays"] for g in r["graphs"])
+        out[name] = {"wall_s": wall, "train_s": r["train_s"],
+                     **{k: r[k] for k in ("loss_first", "loss_last",
+                                          "l1_before", "l1_after")},
+                     "captures": len(r["graphs"]), "replays": replays,
+                     "replay_ms": (sum(g["replay_ms"] for g in r["graphs"])
+                                   / replays if replays else None),
+                     "launches": loop_launches(counts, r["graphs"])}
+    h, d = out["host_loop"], out["device_loop"]
+    checks = {
+        "loss_last_bitwise_equal": d["loss_last"] == h["loss_last"],
+        "render_improves": all(v["l1_after"] < v["l1_before"]
+                               for v in out.values()),
+        "captured": d["captures"] > 0,
+        "launches_as_host_loop": d["launches"] == h["launches"],
+    }
+    trainer, views = trained
+    k2_row, k2_ok, fwd_rows, fwd_ok = train_kernel_checks(
+        trainer, trainer.cfg, views,
+        phase=phase_of_step(trainer.step, trainer.cfg))
+    checks.update({f"{name} (fit step)": good
+                   for name, good in fwd_ok.items()})
+    checks["blend_backward (fit step)"] = k2_ok
+    return {**out, "steps": FIT_STEPS, "checks": checks}, \
+        all(checks.values()), fwd_rows, k2_row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1782,6 +2183,12 @@ def main() -> int:
     emit({"phase": "schedule", "card": card, **s_summary, "ok": s_ok})
     if not s_ok:
         failed.append("schedule")
+    # the host loop at step 40, which phase 22's device loop is held to
+    # (phases 11, 12 and 19 move this trainer on)
+    snapshot = os.path.join(repo, "outputs", "chip_smoke_loop",
+                            "schedule_step40.npz")
+    trainer_s.save(snapshot)
+    s_records = [dict(r) for r in trainer_s.history]
     # the schedule's checkpoint, restored into a fresh trainer and run on
     resume, resume_ok = resume_check(
         model_to(fresh, fresh.state.device), trainer_s, cfg_s,
@@ -1932,28 +2339,74 @@ def main() -> int:
               **r})
     failed += [f"{name} (cold start frame)" for name, good in c_ok.items()
                if not good]
+    del cold_bs, bs
+    torch.cuda.empty_cache()
+
+    # 22. the device loop (CUDA graphs of the step) over the schedule,
+    # against the host loop's state at step 40
+    from bloomscene_tpu_torch.train.loop import Trainer
+    reference = Trainer(perturbed(model_to(fresh, fresh.state.device), SEED),
+                        cfg_s, cams[0].intrinsics, voxel, seed=SEED)
+    reference.restore(snapshot)
+    dl, dl_ok = device_loop_phase(model_to(fresh, fresh.state.device), cams,
+                                  frames, depths, voxel, counters, reference,
+                                  s_records, s_summary)
+    del reference
+    emit({"phase": "device_loop", "card": card, **dl, "ok": dl_ok})
+    if not dl_ok:
+        failed.append("device_loop")
+
+    # 23. the device loop across a capacity growth
+    dlg, dlg_ok = device_loop_growth_phase(fresh, cams, frames, depths,
+                                           voxel, counters)
+    emit({"phase": "device_loop_growth", "card": card, **dlg, "ok": dlg_ok})
+    if not dlg_ok:
+        failed.append("device_loop_growth")
+
+    # 24. the batched trainer at full width
+    dp, dp_ok = dp_phase(fresh, cams, frames, depths, voxel, counters)
+    emit({"phase": "dp", "card": card, **dp, "ok": dp_ok})
+    if not dp_ok:
+        failed.append("dp")
+
+    # 25. fit_single_view, host loop and device loop
+    fit, fit_ok, f_fwd_rows, f_row = fit_phase(workdir, counters)
+    for r in f_fwd_rows + [f_row]:
+        emit({"phase": "kernel", "at": "fit_step", "card": card, **r})
+    emit({"phase": "fit_single_view", "card": card, **fit, "ok": fit_ok})
+    if not fit_ok:
+        failed.append("fit_single_view")
 
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
-    for r, t, u, d, g, pp, c in zip(rows, fwd_rows, s_fwd_rows, d_rows,
-                                    g_fwd_rows, p_fwd_rows, c_rows):
+    for r, t, u, d, g, pp, c, f in zip(rows, fwd_rows, s_fwd_rows, d_rows,
+                                       g_fwd_rows, p_fwd_rows, c_rows,
+                                       f_fwd_rows):
         r["train_shape"] = {k: t[k] for k in shape_keys}
         r["schedule_shape"] = {k: u[k] for k in shape_keys}
         r["decoded_shape"] = {k: d[k] for k in shape_keys}
         r["growth_shape"] = {k: g[k] for k in shape_keys}
         r["pipeline_shape"] = {k: pp[k] for k in shape_keys}
         r["cold_start_shape"] = {k: c[k] for k in shape_keys}
+        r["fit_single_view_shape"] = {k: f[k] for k in shape_keys}
     row["schedule_shape"] = {k: s_row[k] for k in shape_keys}
     row["growth_shape"] = {k: g_row[k] for k in shape_keys}
     row["pipeline_shape"] = {k: p_row[k] for k in shape_keys}
+    row["fit_single_view_shape"] = {k: f_row[k] for k in shape_keys}
     rows += [row, hg_row]
     # a kernel's launches are those of the main paths: render, train, the
     # schedule, the decoded orbit, the growth run, the CLI's pipeline and
-    # its cold start
+    # its cold start, the device loop (a captured launch counted once a
+    # replay) and its growth run, the batched trainer and fit_single_view
+    # (both loops)
+    fit_launches = {k: fit["host_loop"]["launches"][k]
+                    + fit["device_loop"]["launches"][k] for k in counters}
     paths = {"render": launches, "train": summary["launches"],
              "schedule": s_summary["launches"], "decoded": d_launches,
              "growth": g_summary["launches"], "pipeline": pipe["launches"],
-             "cold_start": cold["launches"]}
+             "cold_start": cold["launches"], "device_loop": dl["launches"],
+             "device_loop_growth": dlg["launches"], "dp": dp["launches"],
+             "fit_single_view": fit_launches}
     for r in rows:
         for path, counts in paths.items():
             r[f"launches_{path}"] = counts[r["name"]]
@@ -1966,7 +2419,8 @@ def main() -> int:
             *(f"launches_{p}" for p in paths),
             "block", "dynamic_smem_bytes", "static_smem_bytes", "registers",
             "spill_bytes", "train_shape", "schedule_shape", "decoded_shape",
-            "growth_shape", "pipeline_shape", "cold_start_shape")
+            "growth_shape", "pipeline_shape", "cold_start_shape",
+            "fit_single_view_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:

@@ -10,8 +10,9 @@
 - ``run.main`` with ``--device cpu --resolution 32`` writes every output
   file and a training record every ``--log_every`` steps, times each
   stage in the ``BloomScene``'s spans, ``--load_dir`` renders the saved run's decoded orbit, and an
-  unknown ``--campath_render`` and ``--device_loop`` are refused before
-  any work.
+  unknown ``--campath_render`` is refused before any work; with
+  ``--device_loop`` the same run trains in device-loop chunks and writes
+  the same files and records.
 
 tests/test_torch_io.py opens a scene that the JAX package wrote.
 """
@@ -146,15 +147,25 @@ def test_cli_main_then_load_dir(tmp_path, no_clip):
                                bs.decoded_model.state.anchor, rtol=0, atol=0)
 
 
-def test_cli_refusals(tmp_path):
+def test_cli_refusals(tmp_path, no_clip):
     out = str(tmp_path / 'never')
     with pytest.raises(SystemExit, match='unknown --campath_render'):
         run.main(['--campath_render', 'spiral', '--device', 'cpu',
                   '--save_dir', out])
-    with pytest.raises(SystemExit, match='device_loop'):
-        run.main(['--device_loop', '--device', 'cpu', '--save_dir', out])
     assert not os.path.exists(out)
-    bs = BloomScene(out, cfg=GSConfig(device_loop=True), device='cpu')
-    bs.scene = object()
-    with pytest.raises(NotImplementedError, match='CUDA graphs'):
-        bs.training()
+    # --device_loop trains (in device-loop chunks; eagerly on the CPU)
+    out = str(tmp_path / 'device_loop')
+    bs = run.main(['--priors', 'stub', '--resolution', '32', '--voxel_size',
+                   '0.5', '--iterations', '3', '--render_frames', '2',
+                   '--max_splats_per_tile', '64', '--n_features', '1',
+                   '--log2', '10', '--log2_2D', '10', '--dep_value',
+                   '--dep_domin', '--dep_smooth', '--device', 'cpu',
+                   '--log_every', '2', '--device_loop', '--device_loop_chunk',
+                   '2', '--save_dir', out])
+    for f in OUTPUTS + ('eval_renders/049.png',):
+        assert os.path.exists(os.path.join(out, f)), f
+    assert bs.cfg.device_loop and bs.cfg.device_loop_chunk == 2
+    assert bs.trainer.step == 3
+    assert [r['iteration'] for r in bs.logs] == [2, 3]
+    with open(os.path.join(out, 'train_log.json')) as f:
+        assert [r['iteration'] for r in json.load(f)] == [2, 3]
