@@ -14,6 +14,13 @@
 // Outputs, each [P, T] in position space: r, g, b, D, acc, T (float32) and
 // n_contrib (int32, the 1-based slot of the last blended splat).
 //
+// A strip of positions (bs_blend_forward_range): the blocks of positions
+// [p0, p0 + n) only, reading the whole [10, cap, T] slab, counts and ids in
+// place (stride T) and writing [P, n] planes. A tile's blend reads nothing
+// of another tile, so the strip's planes are the full call's columns
+// p0 .. p0 + n - 1 bit for bit; the tile-parallel render gives each rank
+// of the tile axis its strip (ops/cuda/wrapper.py).
+//
 // What bounds it on an H100: operations -- each (pixel, splat) step is ~30
 // float operations and one exp, against ~40 bytes per splat shared by the
 // tile's pixels. That bound divides them by 67 TFLOP/s, a rate that counts
@@ -100,11 +107,12 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
 template <bool GENERAL, bool SPLIT>
 __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
     const float* __restrict__ slab, const int* __restrict__ counts_p,
-    const int* __restrict__ tid, int cap, int num_tiles, int tile, int gx,
-    float* __restrict__ planes, int* __restrict__ ncon_out) {
+    const int* __restrict__ tid, int cap, int num_tiles, int p0, int n_out,
+    int tile, int gx, float* __restrict__ planes, int* __restrict__ ncon_out) {
   __shared__ float raw[2][DATA_W][BATCH];             // cp.async targets
   __shared__ __align__(16) float rec[2][BATCH][REC];  // derived records
-  const int p = blockIdx.x;
+  const int col = blockIdx.x;      // the output column, position p0 + col
+  const int p = p0 + col;
   const int P = tile * tile;
   const int th = threadIdx.x;
   const int t = tid[p];
@@ -217,7 +225,7 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
       nc1 = b1 ? slot : nc1;
     }
   }
-  const long long plane = (long long)P * num_tiles;
+  const long long plane = (long long)P * n_out;
   const float out[2][6] = {{Cr0, Cg0, Cb0, D0, acc0, T0},
                            {Cr1, Cg1, Cb1, D1, acc1, T1}};
   const int ncs[2] = {nc0, nc1};
@@ -225,7 +233,7 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_fwd_kernel(
 #pragma unroll
   for (int e = 0; e < PIX; ++e) {
     if (!act[e]) continue;
-    const long long o = (long long)(sp0 + e) * num_tiles + p;
+    const long long o = (long long)(sp0 + e) * n_out + col;
 #pragma unroll
     for (int c = 0; c < 6; ++c) planes[c * plane + o] = out[e][c];
     ncon_out[o] = ncs[e];
@@ -252,14 +260,19 @@ extern "C" int bs_blend_forward_shape(int tile, int* threads, int* smem,
   return 0;
 }
 
-extern "C" int bs_blend_forward(const float* slab, const int* counts_p,
-                                const int* tid, int cap, int num_tiles,
-                                int tile, int gx, float* planes,
-                                int* ncon_out, void* stream) {
+// Positions [p0, p0 + n) of a slab of num_tiles positions into [P, n]
+// planes; nonzero for a range outside [0, num_tiles).
+extern "C" int bs_blend_forward_range(const float* slab, const int* counts_p,
+                                      const int* tid, int cap, int num_tiles,
+                                      int p0, int n, int tile, int gx,
+                                      float* planes, int* ncon_out,
+                                      void* stream) {
   int threads, smem, splits;
   const int err = bs_blend_forward_shape(tile, &threads, &smem, &splits);
   if (err) return err;
-  if (num_tiles > 0) {
+  if (p0 < 0 || n < 0 || p0 > num_tiles - n)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
     const int P = tile * tile;
     const bool general = P % (PIX * threads) != 0 || tile % 2 != 0;
     const auto kernel =
@@ -268,8 +281,19 @@ extern "C" int bs_blend_forward(const float* slab, const int* counts_p,
                        : blend_fwd_kernel<false, true>)
             : (general ? blend_fwd_kernel<true, false>
                        : blend_fwd_kernel<false, false>);
-    kernel<<<dim3(num_tiles, splits), threads, smem, (cudaStream_t)stream>>>(
-        slab, counts_p, tid, cap, num_tiles, tile, gx, planes, ncon_out);
+    kernel<<<dim3(n, splits), threads, smem, (cudaStream_t)stream>>>(
+        slab, counts_p, tid, cap, num_tiles, p0, n, tile, gx, planes,
+        ncon_out);
   }
   return (int)cudaGetLastError();
+}
+
+// Every position: [P, num_tiles] planes.
+extern "C" int bs_blend_forward(const float* slab, const int* counts_p,
+                                const int* tid, int cap, int num_tiles,
+                                int tile, int gx, float* planes,
+                                int* ncon_out, void* stream) {
+  return bs_blend_forward_range(slab, counts_p, tid, cap, num_tiles, 0,
+                                num_tiles, tile, gx, planes, ncon_out,
+                                stream);
 }

@@ -73,6 +73,12 @@
 // order and applies the algebra. No float atomics: the same bits every
 // launch.
 //
+// A strip of positions (bs_blend_backward_range): the blocks of positions
+// [p0, p0 + n) only, reading the slab, counts, ids, K1's residuals and the
+// cotangent planes of all T positions in place (stride T) and writing
+// [10, cap, n]. A tile's sums read nothing of another tile, so the strip
+// is the full call's columns p0 .. p0 + n - 1 bit for bit.
+//
 // Built with --fmad=false, and every per-pixel expression keeps the order
 // of the plain version (ops/cuda/blend.py::blend_backward_plain), so the
 // per-pixel values round alike; only the pixel sums' order differs.
@@ -123,14 +129,15 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
     const int* __restrict__ ncon, const float* __restrict__ u_r,
     const float* __restrict__ u_g, const float* __restrict__ u_b,
     const float* __restrict__ u_d, const float* __restrict__ u_one,
-    const float* __restrict__ bg_term, int cap, int num_tiles, int tile,
-    int gx, float* __restrict__ grad, float* __restrict__ split_part,
-    int* __restrict__ split_walk) {
+    const float* __restrict__ bg_term, int cap, int num_tiles, int p0,
+    int n_out, int tile, int gx, float* __restrict__ grad,
+    float* __restrict__ split_part, int* __restrict__ split_walk) {
   extern __shared__ __align__(16) float dyn[];
   float* stage = dyn;               // [3][B][REC]: batches k-1, k, k+1
   float* part = dyn + 3 * STAGE;    // [2][n_part][PART_STRIDE]
   __shared__ int walk_sh;
-  const int p = blockIdx.x;
+  const int col = blockIdx.x;      // the output column, position p0 + col
+  const int p = p0 + col;
   const int th = threadIdx.x;
   const int lane = th & 31, warp = th >> 5;
   const int n_threads = blockDim.x;
@@ -181,7 +188,7 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
   }
   __syncthreads();
   const int walk = min(counts_p[p], walk_sh);
-  if (SPLIT && blockIdx.y == 0 && th == 0) split_walk[p] = walk;
+  if (SPLIT && blockIdx.y == 0 && th == 0) split_walk[col] = walk;
   const int n_batch = (walk + B - 1) / B;
   // slot j of batch k is s = walk - 1 - k B - j; s < 0 pads the last batch
 
@@ -226,7 +233,7 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
       if (SPLIT) {
         // this block's sum of channel ``row``; split_sums adds the blocks
         split_part[(((long long)blockIdx.y * GRAD_W + row) * cap + s) *
-                       num_tiles + p] = msum(row);
+                       n_out + col] = msum(row);
         continue;
       }
       const float* rec = st + j * REC;
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
         case 5: g = msum(0); break;                              // d opacity
         default: g = msum(row); break;                           // depth, rgb
       }
-      grad[((long long)row * cap + s) * num_tiles + p] = g;
+      grad[((long long)row * cap + s) * n_out + col] = g;
     }
   };
 
@@ -374,17 +381,17 @@ __global__ void __launch_bounds__(MAX_THREADS) blend_bwd_kernel(
 }
 
 // A split tile's gradient rows: the ten channel sums of each (slot s,
-// position p) below the walk, each added over the S blocks in block order,
-// then the channel algebra of the epilogue above.
+// output column j) below the walk, each added over the S blocks in block
+// order, then the channel algebra of the epilogue above.
 __global__ void __launch_bounds__(256) split_sums(
     const float* __restrict__ slab, const float* __restrict__ split_part,
     const int* __restrict__ split_walk, int splits, int cap, int num_tiles,
-    float* __restrict__ grad) {
+    int p0, int n_out, float* __restrict__ grad) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)cap * num_tiles) return;
-  const int s = (int)(i / num_tiles), p = (int)(i % num_tiles);
-  if (s >= split_walk[p]) return;
-  const long long plane = (long long)cap * num_tiles;
+  if (i >= (long long)cap * n_out) return;
+  const int s = (int)(i / n_out), j = (int)(i % n_out);
+  if (s >= split_walk[j]) return;
+  const long long plane = (long long)cap * n_out;
   float m[GRAD_W];
 #pragma unroll
   for (int c = 0; c < GRAD_W; ++c) {
@@ -393,8 +400,11 @@ __global__ void __launch_bounds__(256) split_sums(
       r += split_part[((long long)k * GRAD_W + c) * plane + i];
     m[c] = r;
   }
-  const float ca = slab[2 * plane + i], cb = slab[3 * plane + i],
-              cc = slab[4 * plane + i], op = slab[5 * plane + i];
+  // the slab's rows of (s, p0 + j), stride num_tiles
+  const long long in_plane = (long long)cap * num_tiles;
+  const long long si = (long long)s * num_tiles + p0 + j;
+  const float ca = slab[2 * in_plane + si], cb = slab[3 * in_plane + si],
+              cc = slab[4 * in_plane + si], op = slab[5 * in_plane + si];
   // the channel algebra of blend.py:448-459, as in the epilogue
   const float g[GRAD_W] = {-op * (ca * m[1] + cb * m[2]),
                            -op * (cc * m[2] + cb * m[1]),
@@ -427,23 +437,22 @@ extern "C" int bs_blend_backward_shape(int tile, int* threads, int* smem,
   return 0;
 }
 
-// split_part [S, 10, cap, T] float32 and split_walk [T] int32 are scratch
-// for a tile above 32 (S from bs_blend_backward_shape); null otherwise.
-// They come last, so a caller of the tile-1-32 form (no scratch) still
-// passes the stream where it was.
-extern "C" int bs_blend_backward(const float* slab, const int* counts_p,
-                                 const int* tid, const float* final_T,
-                                 const int* ncon, const float* u_r,
-                                 const float* u_g, const float* u_b,
-                                 const float* u_d, const float* u_one,
-                                 const float* bg_term, int cap, int num_tiles,
-                                 int tile, int gx, float* grad,
-                                 void* stream, float* split_part,
-                                 int* split_walk) {
+// Positions [p0, p0 + n) of num_tiles into grad [10, cap, n]. split_part
+// [S, 10, cap, n] float32 and split_walk [n] int32 are scratch for a tile
+// above 32 (S from bs_blend_backward_shape); null otherwise. Nonzero for a
+// range outside [0, num_tiles).
+extern "C" int bs_blend_backward_range(
+    const float* slab, const int* counts_p, const int* tid,
+    const float* final_T, const int* ncon, const float* u_r,
+    const float* u_g, const float* u_b, const float* u_d, const float* u_one,
+    const float* bg_term, int cap, int num_tiles, int p0, int n, int tile,
+    int gx, float* grad, void* stream, float* split_part, int* split_walk) {
   int threads, smem, splits;
   const int err = bs_blend_backward_shape(tile, &threads, &smem, &splits);
   if (err) return err;
-  if (num_tiles > 0) {
+  if (p0 < 0 || n < 0 || p0 > num_tiles - n)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
     const int P = tile * tile;
     const bool general = P % (2 * threads) != 0 || tile % 2 != 0;
     const bool split = tile > ONE_BLOCK_TILE;
@@ -457,15 +466,36 @@ extern "C" int bs_blend_backward(const float* slab, const int* counts_p,
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (set != cudaSuccess) return (int)set;
-    kernel<<<dim3(num_tiles, splits), threads, smem, (cudaStream_t)stream>>>(
+    kernel<<<dim3(n, splits), threads, smem, (cudaStream_t)stream>>>(
         slab, counts_p, tid, final_T, ncon, u_r, u_g, u_b, u_d, u_one,
-        bg_term, cap, num_tiles, tile, gx, grad, split_part, split_walk);
+        bg_term, cap, num_tiles, p0, n, tile, gx, grad, split_part,
+        split_walk);
     if (split && cap > 0) {
-      const long long n_out = (long long)cap * num_tiles;
-      split_sums<<<(unsigned)((n_out + 255) / 256), 256, 0,
+      const long long n_sums = (long long)cap * n;
+      split_sums<<<(unsigned)((n_sums + 255) / 256), 256, 0,
                    (cudaStream_t)stream>>>(slab, split_part, split_walk,
-                                           splits, cap, num_tiles, grad);
+                                           splits, cap, num_tiles, p0, n,
+                                           grad);
     }
   }
   return (int)cudaGetLastError();
+}
+
+// Every position: grad [10, cap, num_tiles], split_part [S, 10, cap,
+// num_tiles] and split_walk [num_tiles]. The scratch comes last, so a
+// caller of the tile-1-32 form (no scratch) still passes the stream where
+// it was.
+extern "C" int bs_blend_backward(const float* slab, const int* counts_p,
+                                 const int* tid, const float* final_T,
+                                 const int* ncon, const float* u_r,
+                                 const float* u_g, const float* u_b,
+                                 const float* u_d, const float* u_one,
+                                 const float* bg_term, int cap, int num_tiles,
+                                 int tile, int gx, float* grad,
+                                 void* stream, float* split_part,
+                                 int* split_walk) {
+  return bs_blend_backward_range(slab, counts_p, tid, final_T, ncon, u_r,
+                                 u_g, u_b, u_d, u_one, bg_term, cap,
+                                 num_tiles, 0, num_tiles, tile, gx, grad,
+                                 stream, split_part, split_walk);
 }

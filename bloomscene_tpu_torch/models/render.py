@@ -105,7 +105,8 @@ def render(model: Model, intr: Intrinsics, cam: CameraArrays,
            tile_capacity: int | None = None,
            visible_capacity: int | None = None,
            pair_capacity: int | None = None,
-           packed_capacity: int | None = None) -> RenderResult:
+           packed_capacity: int | None = None,
+           tile_group=None) -> RenderResult:
     """Render one view. ``visible_capacity`` / ``pair_capacity`` /
     ``packed_capacity`` override the cfg values (the eval render sizes them
     from measuring passes over the orbit, pipeline.render_model).
@@ -114,16 +115,19 @@ def render(model: Model, intr: Intrinsics, cam: CameraArrays,
     projected means: its gradient is dL/dmean2d in pixels, the densify
     statistic (render.py:104-108, 160-162). ``noise`` is the decode's
     draws in training phases 1 and 2, over the rows it decodes (the
-    visible bucket when the render compacts)."""
+    visible bucket when the render compacts). ``tile_group`` (the mesh's
+    tile axis) blends tile-parallel (render.py:99,170; ``rasterize_tiles``):
+    every rank of the axis renders the same view and gets the same
+    result."""
     with torch.set_grad_enabled(mode == 'train' and torch.is_grad_enabled()):
         return _render(model, intr, cam, cfg, phase, mode, bg, visible,
                        mean2d_offset, noise, tile_capacity, visible_capacity,
-                       pair_capacity, packed_capacity)
+                       pair_capacity, packed_capacity, tile_group)
 
 
 def _render(model, intr, cam, cfg, phase, mode, bg, visible, mean2d_offset,
             noise, tile_capacity, visible_capacity, pair_capacity,
-            packed_capacity) -> RenderResult:
+            packed_capacity, tile_group) -> RenderResult:
     dev = model.state.device
     if bg is None:
         bg = torch.zeros(3, device=dev)
@@ -152,6 +156,7 @@ def _render(model, intr, cam, cfg, phase, mode, bg, visible, mean2d_offset,
         tile=cfg.tile_size,
         pair_capacity=pair_capacity or cfg.pair_capacity,
         tile_capacity=tile_capacity or cfg.max_splats_per_tile,
-        packed_capacity=packed_capacity or cfg.packed_capacity)
+        packed_capacity=packed_capacity or cfg.packed_capacity,
+        tile_group=tile_group)
     return RenderResult(out=out, dec=dec, rate=rate, proj=proj, bins=bins,
                         visible_idx=visible_idx)

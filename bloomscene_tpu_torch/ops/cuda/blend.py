@@ -19,6 +19,20 @@ blocks' per-slot sums in a second kernel, in block order (see the
 sources' notes for the designs and for tiles whose pixel count is not a
 multiple of 64). The plain versions run the same per-slot recurrences
 over all pixels of all tiles at once, as the TPU kernels do.
+
+Both take a strip of positions ``[p0, p0 + n)`` (the tile-parallel render,
+``ops/cuda/wrapper.py``): the kernels read the whole slab and, for K2, the
+whole [P, T] planes in place and write only the strip's columns, which
+equal the full call's bit for bit, since no tile's blend or sums read
+another tile. The plain versions keep that property on the CPU too: a
+strip's pixel sums are taken at the strip's own columns of a [P, T]
+buffer (``_pixel_sums``: the CPU's sum over the pixel axis adds a column
+in an order that depends on its place in T), and K2 writes exact zeros
+past each tile's walk, as the kernel does. Where that order does not
+depend on the place (T below 16 or a multiple of 16, as at 64x64 and
+512x512 with 16-pixel tiles), the plain K2 of a tile is the same bits at
+any position, so a tile-parallel render, whose positions are dealt over
+the strips, is the one-process render bit for bit on the CPU too.
 """
 from __future__ import annotations
 
@@ -34,8 +48,12 @@ DATA_W = 10      # slab rows: mx, my, ca, cb, cc, op, depth, r, g, b
 GRAD_W = 10      # gradient rows: d mx, my, ca, cb, cc, op, depth, r, g, b
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+_RANGE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 3)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 4)   # grad, stream, split scratch
+_BWD_RANGE_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 4)
 _SHAPE_ARGTYPES = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
 
 
@@ -61,27 +79,50 @@ def launch_shape(name: str, tile: int) -> tuple[int, int, int]:
     return tuple(x.value for x in out)
 
 
+def strip(T: int, p0: int, n: int | None) -> int:
+    """The positions of the strip [p0, p0 + n) of T (n None: to the end),
+    checked to lie in [0, T)."""
+    n = T - p0 if n is None else n
+    if p0 < 0 or n < 0 or p0 + n > T:
+        raise ValueError(f"positions [{p0}, {p0 + n}) outside [0, {T})")
+    return n
+
+
 def blend_forward(slab: torch.Tensor, counts_p: torch.Tensor,
-                  tid: torch.Tensor, tile: int, gx: int):
+                  tid: torch.Tensor, tile: int, gx: int, p0: int = 0,
+                  n: int | None = None):
     """slab [10, cap, T] f32, counts_p [T] int32 (splats per position),
     tid [T] int32 (tile id per position) -> (r, g, b, D, acc, final_T,
-    n_contrib), each [tile*tile, T] in position space (float32, last int32).
+    n_contrib) of positions [p0, p0 + n) (all by default), each
+    [tile*tile, n] in position space (float32, last int32).
     """
+    n = strip(slab.shape[2], p0, n)
     if slab.device.type == "cpu":
-        return blend_forward_plain(slab, counts_p, tid, tile, gx)
+        return blend_forward_plain(slab, counts_p, tid, tile, gx, p0, n)
     dev = slab.device
     _, cap, T = slab.shape
     require(slab, torch.float32, (DATA_W, cap, T), "slab", dev)
     require(counts_p, torch.int32, (T,), "counts_p", dev)
     require(tid, torch.int32, (T,), "tid", dev)
     P = check_tile(tile)
-    planes = torch.empty((6, P, T), dtype=torch.float32, device=dev)
-    ncon = torch.empty((P, T), dtype=torch.int32, device=dev)
-    fn = library("blend").bs_blend_forward
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    check(fn(slab.data_ptr(), counts_p.data_ptr(), tid.data_ptr(), cap, T,
-             tile, gx, planes.data_ptr(), ncon.data_ptr(), stream_ptr(dev)),
-          "blend_forward")
+    planes = torch.empty((6, P, n), dtype=torch.float32, device=dev)
+    ncon = torch.empty((P, n), dtype=torch.int32, device=dev)
+    lib = library("blend")
+    if n == T:
+        # the whole slab through the entry point every build of the
+        # library has, so profile_blend.py --against can load an older one
+        fn = lib.bs_blend_forward
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        err = fn(slab.data_ptr(), counts_p.data_ptr(), tid.data_ptr(), cap,
+                 T, tile, gx, planes.data_ptr(), ncon.data_ptr(),
+                 stream_ptr(dev))
+    else:
+        fn = lib.bs_blend_forward_range
+        fn.argtypes, fn.restype = _RANGE_ARGTYPES, ctypes.c_int
+        err = fn(slab.data_ptr(), counts_p.data_ptr(), tid.data_ptr(), cap,
+                 T, p0, n, tile, gx, planes.data_ptr(), ncon.data_ptr(),
+                 stream_ptr(dev))
+    check(err, "blend_forward")
     blend_forward.launches += 1
     return (*planes.unbind(0), ncon)
 
@@ -136,8 +177,16 @@ def forward_slots(slab, counts_p, tid, tile, gx) -> Iterator[ForwardSlot]:
         Tr = T_next
 
 
-def blend_forward_plain(slab, counts_p, tid, tile, gx):
-    P, T = tile * tile, slab.shape[2]
+def columns(p0: int, n: int, *tensors):
+    """Each tensor's positions [p0, p0 + n) along its last axis (views)."""
+    return tuple(t[..., p0:p0 + n] for t in tensors)
+
+
+def blend_forward_plain(slab, counts_p, tid, tile, gx, p0: int = 0,
+                        n: int | None = None):
+    n = strip(slab.shape[2], p0, n)
+    slab, counts_p, tid = columns(p0, n, slab, counts_p, tid)
+    P, T = tile * tile, n
     dev = slab.device
     Tr = torch.ones((P, T), dtype=torch.float32, device=dev)
     Cr, Cg, Cb, D = (torch.zeros((P, T), dtype=torch.float32, device=dev)
@@ -162,14 +211,18 @@ def blend_backward(slab: torch.Tensor, counts_p: torch.Tensor,
                    final_T: torch.Tensor, ncon: torch.Tensor,
                    u_r: torch.Tensor, u_g: torch.Tensor, u_b: torch.Tensor,
                    u_d: torch.Tensor, u_one: torch.Tensor,
-                   bg_term: torch.Tensor) -> torch.Tensor:
+                   bg_term: torch.Tensor, p0: int = 0,
+                   n: int | None = None) -> torch.Tensor:
     """slab [10, cap, T] f32, counts_p and tid [T] int32, final_T [P, T]
     f32 and ncon [P, T] int32 (K1's residuals), the six cotangent planes
     [P, T] f32 (r, g, b, depth value, ones, background term) -> per-entry
-    gradients [10, cap, T] f32; rows past a tile's walk are zero."""
+    gradients [10, cap, n] f32 of positions [p0, p0 + n) (all by default);
+    rows past a tile's walk are zero."""
+    n = strip(slab.shape[2], p0, n)
     if slab.device.type == "cpu":
         return blend_backward_plain(slab, counts_p, tid, tile, gx, final_T,
-                                    ncon, u_r, u_g, u_b, u_d, u_one, bg_term)
+                                    ncon, u_r, u_g, u_b, u_d, u_one, bg_term,
+                                    p0=p0, n=n)
     dev = slab.device
     _, cap, T = slab.shape
     P = check_tile(tile)
@@ -181,22 +234,29 @@ def blend_backward(slab: torch.Tensor, counts_p: torch.Tensor,
     for name, t in zip(("final_T", "u_r", "u_g", "u_b", "u_d", "u_one",
                         "bg_term"), planes):
         require(t, torch.float32, (P, T), name, dev)
-    grad = torch.zeros((GRAD_W, cap, T), dtype=torch.float32, device=dev)
+    grad = torch.zeros((GRAD_W, cap, n), dtype=torch.float32, device=dev)
     splits = launch_shape("blend_bwd", tile)[2]
     # a split tile's per-block channel sums and walks (scratch)
-    part = (torch.empty((splits, GRAD_W, cap, T), dtype=torch.float32,
+    part = (torch.empty((splits, GRAD_W, cap, n), dtype=torch.float32,
                         device=dev) if splits > 1 else None)
-    walk = (torch.empty((T,), dtype=torch.int32, device=dev)
+    walk = (torch.empty((n,), dtype=torch.int32, device=dev)
             if splits > 1 else None)
-    fn = library("blend_bwd").bs_blend_backward
-    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
-    check(fn(slab.data_ptr(), counts_p.data_ptr(), tid.data_ptr(),
-             final_T.data_ptr(), ncon.data_ptr(), u_r.data_ptr(),
-             u_g.data_ptr(), u_b.data_ptr(), u_d.data_ptr(),
-             u_one.data_ptr(), bg_term.data_ptr(), cap, T, tile, gx,
-             grad.data_ptr(), stream_ptr(dev),
-             None if part is None else part.data_ptr(),
-             None if walk is None else walk.data_ptr()), "blend_backward")
+    ins = [t.data_ptr() for t in (slab, counts_p, tid, final_T, ncon, u_r,
+                                  u_g, u_b, u_d, u_one, bg_term)]
+    outs = [grad.data_ptr(), stream_ptr(dev),
+            None if part is None else part.data_ptr(),
+            None if walk is None else walk.data_ptr()]
+    lib = library("blend_bwd")
+    if n == T:
+        # the whole slab through the entry point every build has
+        fn = lib.bs_blend_backward
+        fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+        err = fn(*ins, cap, T, tile, gx, *outs)
+    else:
+        fn = lib.bs_blend_backward_range
+        fn.argtypes, fn.restype = _BWD_RANGE_ARGTYPES, ctypes.c_int
+        err = fn(*ins, cap, T, p0, n, tile, gx, *outs)
+    check(err, "blend_backward")
     blend_backward.launches += 1
     return grad
 
@@ -209,17 +269,39 @@ def blend_walk(counts_p: torch.Tensor, ncon: torch.Tensor) -> torch.Tensor:
     return torch.minimum(counts_p, ncon.amax(0))
 
 
+def _pixel_sums(terms, p0: int, T: int) -> list:
+    """Each [P, n] term of the strip [p0, p0 + n) of T positions summed over
+    its pixels -> [n] each, every column reduced where the full call
+    reduces it: at its own place in a [P, T] buffer."""
+    n = terms[0].shape[1]
+    if n == T:
+        return [x.sum(0) for x in terms]
+    out = []
+    for x in terms:
+        buf = x.new_zeros((x.shape[0], T))
+        buf[:, p0:p0 + n] = x
+        out.append(buf.sum(0)[p0:p0 + n])
+    return out
+
+
 def blend_backward_plain(slab, counts_p, tid, tile, gx, final_T, ncon, u_r,
-                         u_g, u_b, u_d, u_one, bg_term, magnitude=False):
+                         u_g, u_b, u_d, u_one, bg_term, magnitude=False,
+                         p0: int = 0, n: int | None = None):
     """K2's plain version. ``magnitude=True`` gives, for each entry, the
     same row with every pixel term and every factor taken by its absolute
     value: the scale of the float32 rounding of a sum of those terms in
     another order."""
+    T_full = slab.shape[2]
+    n = strip(T_full, p0, n)
+    (slab, counts_p, tid, final_T, ncon, u_r, u_g, u_b, u_d, u_one,
+     bg_term) = columns(p0, n, slab, counts_p, tid, final_T, ncon, u_r, u_g,
+                        u_b, u_d, u_one, bg_term)
     _, cap, T = slab.shape
     px, py = pixel_coords(tid, tile, gx)
     grad = torch.zeros((GRAD_W, cap, T), dtype=torch.float32,
                        device=slab.device)
-    n_walk = int(blend_walk(counts_p, ncon).max()) if T else 0
+    walk = blend_walk(counts_p, ncon)
+    n_walk = int(walk.max()) if T else 0
     Tr = final_T
     Sr = Sg = Sb = Sd = S1 = torch.zeros_like(final_T)
     tb = -final_T * bg_term
@@ -252,8 +334,12 @@ def blend_backward_plain(slab, counts_p, tid, tile, gx, final_T, ncon, u_r,
         if magnitude:
             terms = [x.abs() for x in terms]
             op, ca, cb, cc = op.abs(), ca.abs(), cb.abs(), cc.abs()
-        m0, m1, m2, m3, m4, m5, sd, sr, sg, sb = (x.sum(0) for x in terms)
-        grad[:, s, :] = torch.stack([
+        m0, m1, m2, m3, m4, m5, sd, sr, sg, sb = _pixel_sums(terms, p0,
+                                                             T_full)
+        # a tile's rows at or past its walk stay exact zeros, as K2 leaves
+        # them
+        grad[:, s, :] = torch.where(s < walk, torch.stack([
             -op * (ca * m1 + cb * m2), -op * (cc * m2 + cb * m1),
-            -0.5 * op * m3, -op * m4, -0.5 * op * m5, m0, sd, sr, sg, sb], 0)
+            -0.5 * op * m3, -op * m4, -0.5 * op * m5, m0, sd, sr, sg, sb], 0),
+            0.0)
     return grad.abs() if magnitude else grad

@@ -15,6 +15,18 @@ the Pallas kernel.
 
 The slab, the bins and the residuals carry no gradient; gradients reach
 mean2d, conic, depth, color, opacity and bg only through ``TileBlend``.
+
+Tile-parallel (``group``, the mesh's tile axis, with ``bins.tile_shards``
+strips: the counterpart of the shard-mapped K1 and K2, blend.py:243-270 and
+:475-500). Binning runs on every rank on the same inputs. Each rank runs
+K1 on its strip of T / S positions; the strips' planes are all-gathered
+in rank order and assembled on every rank. In the backward every rank
+computes the cotangent planes, K2 runs on its strip, the [10, cap, T / S]
+strips are all-gathered and every rank runs the reduction. Since a tile's
+K1 and K2 read no other tile, the gathered planes and gradients are the
+single call's bit for bit, and so are the image and the per-Gaussian
+gradients (the cumsum-difference reduction is not additive in float, so
+strip-local partials are never summed across ranks).
 """
 from __future__ import annotations
 
@@ -82,18 +94,44 @@ def reduce_entry_grads(grad: torch.Tensor, src_lane: torch.Tensor,
                        - exc[:, torch.clamp(s, max=pc - 1)], 0.0)
 
 
+def _strip(bins, group) -> tuple[int, int]:
+    """(p0, n): this rank's strip of positions, or all of them."""
+    T = bins.perm.numel()
+    if bins.tile_shards == 1:
+        return 0, T
+    if group is None or group.size != bins.tile_shards:
+        raise ValueError(f"bins cut into {bins.tile_shards} strips need a "
+                         f"tile group of that size, got {group}")
+    n = T // bins.tile_shards
+    return group.index * n, n
+
+
+def _gather_columns(group, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's strip of positions (the last axis), in rank order."""
+    return torch.cat(group.all_gather(x), -1)
+
+
 class TileBlend(torch.autograd.Function):
     """K1 + image assembly forward; K2 + reduction backward."""
 
     @staticmethod
-    def forward(ctx, mean2d, conic, depth, color, opac, bg, bins, geom):
+    def forward(ctx, mean2d, conic, depth, color, opac, bg, bins, geom,
+                group):
         tile, gx, gy, W, H = geom
         counts_p = bins.counts[bins.perm.long()].contiguous()
+        p0, n = _strip(bins, group)
         r, g, b, D, acc, Tf, ncon = blend_forward(bins.slab, counts_p,
-                                                  bins.perm, tile, gx)
+                                                  bins.perm, tile, gx, p0, n)
+        if bins.tile_shards > 1:
+            # one gather: the six planes and n_contrib's bits as a seventh
+            planes = _gather_columns(group, torch.stack(
+                [r, g, b, D, acc, Tf, ncon.view(torch.float32)], 0))
+            r, g, b, D, acc, Tf = planes[:6]
+            ncon = planes[6].view(torch.int32)
         out = _assemble(torch.stack([r, g, b, D, acc, Tf], 0), bins.pos, bg,
                         tile, gx, gy, W, H)
-        ctx.geom = geom
+        ctx.geom, ctx.group, ctx.strip = geom, group, (p0, n)
+        ctx.shards = bins.tile_shards
         ctx.save_for_backward(bins.slab, counts_p, bins.perm, Tf, acc, D,
                               ncon, bg, bins.src_lane, bins.starts_by_id,
                               bins.ends_by_id)
@@ -112,18 +150,25 @@ class TileBlend(torch.autograd.Function):
                                  acc, D, perm, tile, gx, gy)
         with record_function("tile_blend.k2"):
             grad = blend_backward(slab, counts_p, perm, tile, gx, Tf, ncon,
-                                  *u)
+                                  *u, *ctx.strip)
+        if ctx.shards > 1:
+            with record_function("tile_blend.gather"):
+                grad = _gather_columns(ctx.group, grad)
         with record_function("tile_blend.reduce"):
             sums = reduce_entry_grads(grad, src_lane, starts, ends)
             d_bg = torch.stack([torch.sum(Tf * u[0]), torch.sum(Tf * u[1]),
                                 torch.sum(Tf * u[2])])
         return (sums[0:2].T, sums[2:5].T, sums[6], sums[7:10].T, sums[5],
-                d_bg, None, None)
+                d_bg, None, None, None)
 
 
 def tile_blend(mean2d, conic, depth, color, opac, bg, bins, tile: int,
-               gx: int, gy: int, W: int, H: int) -> RenderOutput:
+               gx: int, gy: int, W: int, H: int,
+               group=None) -> RenderOutput:
     """Blend the binned splats into one view. ``bins`` must carry the slab
-    (``bin_splats(attr_rows=...)``) and, for gradients, the grad index."""
+    (``bin_splats(attr_rows=...)``) and, for gradients, the grad index.
+    Bins cut into ``bins.tile_shards`` > 1 strips blend tile-parallel over
+    ``group`` (the mesh's tile axis, of that size)."""
     return RenderOutput(*TileBlend.apply(mean2d, conic, depth, color, opac,
-                                         bg, bins, (tile, gx, gy, W, H)))
+                                         bg, bins, (tile, gx, gy, W, H),
+                                         group))

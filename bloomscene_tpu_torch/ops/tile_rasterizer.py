@@ -8,6 +8,13 @@ Binning runs without grad on detached values (the bins and the slab carry
 no gradient, tile_rasterizer.py:373-391); the live mean2d, conic, depth,
 color, opacity and bg enter ``TileBlend``. Which code runs follows the
 tensors' device: on CUDA the kernels, on the CPU their plain versions.
+
+``tile_group`` (the mesh's tile axis) is the counterpart of JAX's
+``tile_sharding`` (tile_rasterizer.py:339-421): when the tile count
+divides its size S, the occupancy order is dealt over S strips and each
+rank blends its strip (``ops/cuda/wrapper.py``); otherwise every rank
+blends the whole grid, on the same kernels (tile_rasterizer.py:355-365).
+``TileBins.tile_shards`` says which ran.
 """
 from __future__ import annotations
 
@@ -38,14 +45,18 @@ def rasterize_tiles(proj: ProjectedSplats,
                     tile: int = 16,
                     pair_capacity: int | None = None,
                     tile_capacity: int = 1024,
-                    packed_capacity: int | None = None
-                    ) -> tuple[RenderOutput, TileBins]:
+                    packed_capacity: int | None = None,
+                    tile_group=None) -> tuple[RenderOutput, TileBins]:
     """Bin + blend one view. Overflow is depth-aware (the farthest pairs
     drop first) and reported in the returned ``TileBins``. The output is
     differentiable in proj.mean2d, proj.conic, proj.depth, colors,
-    opacities and bg when grad is enabled."""
+    opacities and bg when grad is enabled. With ``tile_group`` every rank
+    of that axis calls this on the same inputs and gets the same result,
+    the blend cut into strips when the grid divides the axis."""
     n = proj.mean2d.shape[0]
     gx, gy = tile_grid(W, H, tile)
+    size = tile_group.size if tile_group is not None else 1
+    shards = size if size > 1 and (gx * gy) % size == 0 else 1
     if pair_capacity is None:
         # the JAX package's default: 4 pairs a splat, at most 2x the total
         # tile budget
@@ -62,7 +73,7 @@ def rasterize_tiles(proj: ProjectedSplats,
                           opacities=o_sg, packed_capacity=packed_capacity,
                           grad_index=grad and n > 0,
                           attr_rows=attr_rows(p_sg, colors.detach(), o_sg)
-                          if n > 0 else None)
+                          if n > 0 else None, tile_shards=shards)
     if n == 0:
         # empty scene: the composite is the background
         dev = bg.device
@@ -73,5 +84,5 @@ def rasterize_tiles(proj: ProjectedSplats,
             final_T=torch.ones((H, W), dtype=torch.float32, device=dev))
         return out, bins
     out = tile_blend(proj.mean2d, proj.conic, proj.depth, colors, opac_eff,
-                     bg, bins, tile, gx, gy, W, H)
+                     bg, bins, tile, gx, gy, W, H, group=tile_group)
     return out, bins

@@ -15,7 +15,9 @@ The forward of ``bloomscene_tpu/ops/tiles.py`` (``compute_tile_rects``,
    ``packed_capacity``; tile ranges from one (T+1)-probe search.
 5. Occupancy order of the tiles, the gradient-reduction index, and the
    blend's slab ``[10, tile_capacity, T]`` through kernel K4
-   (``ops/cuda/expand.py``).
+   (``ops/cuda/expand.py``). With ``tile_shards=S`` (the tile-parallel
+   render) the occupancy ranks are dealt round-robin over S strips of
+   positions, so every strip gets an equal share of heavy tiles.
 
 All outputs equal the JAX package's bit for bit on the same inputs. The
 TPU's sort-payload packing of the rectangle fields is not reproduced; the
@@ -51,6 +53,10 @@ class TileBins(NamedTuple):
     src_lane: torch.Tensor | None = None      # [pair_capacity] int32
     starts_by_id: torch.Tensor | None = None  # [n] int32
     ends_by_id: torch.Tensor | None = None    # [n] int32
+    # strips of positions the blend was cut into: the tile axis' size in a
+    # tile-parallel render whose grid divides it, else 1 (every rank
+    # blends the whole grid)
+    tile_shards: int = 1
 
 
 def tile_grid(W: int, H: int, tile: int) -> tuple[int, int]:
@@ -146,13 +152,16 @@ def bin_splats(proj: ProjectedSplats, W: int, H: int, tile: int,
                opacities: torch.Tensor | None = None,
                packed_capacity: int | None = None,
                grad_index: bool = False,
-               attr_rows: torch.Tensor | None = None) -> TileBins:
+               attr_rows: torch.Tensor | None = None,
+               tile_shards: int = 1) -> TileBins:
     """Per-tile depth-sorted splat lists (see the module docstring).
 
     ``opacities`` ([N], values) enables the exact-zero pair cull;
     ``attr_rows`` ([10, N] float32: mean2d x/y, conic a/b/c, opacity,
     depth, r, g, b) builds the blend slab; ``grad_index`` adds the JAX
-    package's gradient-reduction index.
+    package's gradient-reduction index. ``tile_shards`` > 1, when it
+    divides the tile count, deals the occupancy order over that many
+    strips of positions (ops/tiles.py:555-561).
     """
     gx, gy = tile_grid(W, H, tile)
     num_tiles = gx * gy
@@ -209,6 +218,15 @@ def bin_splats(proj: ProjectedSplats, W: int, H: int, tile: int,
         # occupancy order of the tile grid (descending count, stable)
         counts_cl = torch.clamp(counts, max=tile_capacity)
         perm = torch.sort(-counts_cl, stable=True).indices.to(torch.int32)
+        if tile_shards > 1 and num_tiles % tile_shards == 0:
+            # position q of strip d = q // L holds occupancy rank
+            # (q % L) * S + d: every strip an equal share of heavy tiles,
+            # each internally occupancy-sorted
+            L = num_tiles // tile_shards
+            rank_of_pos = (tids % L) * tile_shards + tids // L
+            perm = perm[rank_of_pos.long()]
+        else:
+            tile_shards = 1
         pos = torch.empty_like(perm)
         pos[perm.long()] = tids
     if grad_index:
@@ -244,4 +262,5 @@ def bin_splats(proj: ProjectedSplats, W: int, H: int, tile: int,
         num_packed=num_packed,
         packed_overflow=torch.maximum(num_packed - packed_capacity, zero),
         perm=perm, pos=pos, slab=slab, src_lane=src_lane,
-        starts_by_id=starts_by_id, ends_by_id=ends_by_id)
+        starts_by_id=starts_by_id, ends_by_id=ends_by_id,
+        tile_shards=tile_shards if perm is not None else 1)

@@ -25,13 +25,11 @@ Three loops run that schedule:
   host loop's state bit for bit;
 - the batched trainer (``Trainer(dp_batch=B)``, JAX's
   ``make_dp_train_step`` with ``mesh=None``): B views a step, the mean of
-  their losses.
+  their losses; with ``mesh=`` (``parallel/mesh.py``) the same step data
+  parallel over the mesh's ranks, each rendering its B / data views.
 
 ``Trainer.save``/``restore`` write and read the port's own trainer
 checkpoint, which resumes a run bit for bit, past densification steps too.
-
-Not ported yet (ROADMAP queue 1): ``Trainer(mesh=...)``, the sharded twin
-of ``dp_batch`` (``bloomscene_tpu/parallel``).
 """
 from __future__ import annotations
 
@@ -156,15 +154,17 @@ def decoded_rows(model: Model, cfg: GSConfig) -> int:
 
 def view_loss(cfg: GSConfig, intr: Intrinsics, bg, model: Model,
               visible, m2d_offset, cam: CameraArrays, gt_image, gt_depth,
-              phase: int, noise: DecodeNoise | None = None):
+              phase: int, noise: DecodeNoise | None = None, tile_group=None):
     """One view's render and loss stack, with grad -> (loss, aux, res).
     With ``cfg.remat`` the decode and render are recomputed in the
     backward; ``noise`` is drawn before, so the recomputation sees the same
     draws, and the render draws nothing itself, so the CUDA RNG state is
-    neither saved nor restored (which a CUDA graph could not capture)."""
+    neither saved nor restored (which a CUDA graph could not capture).
+    ``tile_group`` blends tile-parallel (``render``)."""
     def render_fn(m2d):
         return render(model, intr, cam, cfg, phase=phase, mode='train',
-                      bg=bg, visible=visible, mean2d_offset=m2d, noise=noise)
+                      bg=bg, visible=visible, mean2d_offset=m2d, noise=noise,
+                      tile_group=tile_group)
 
     with torch.enable_grad(), record_function("train.forward"):
         if cfg.remat:
@@ -189,7 +189,8 @@ def _gradients(loss, tensors: list) -> list:
 
 def step_gradients(cfg: GSConfig, intr: Intrinsics, bg, model: Model,
                    params: list, cam: CameraArrays, gt_image, gt_depth,
-                   phase: int, noise: DecodeNoise | None = None):
+                   phase: int, noise: DecodeNoise | None = None,
+                   tile_group=None):
     """The forward and backward of one step -> (visible, loss, aux, res,
     grads, g_m2d): the gradient of the loss for each tensor of ``params``
     (zeros where the loss does not reach it) and for the mean2d offset."""
@@ -199,7 +200,8 @@ def step_gradients(cfg: GSConfig, intr: Intrinsics, bg, model: Model,
     m2d_offset = torch.zeros((n_child * 2,), device=visible.device,
                              requires_grad=True)
     loss, aux, res = view_loss(cfg, intr, bg, model, visible, m2d_offset,
-                               cam, gt_image, gt_depth, phase, noise)
+                               cam, gt_image, gt_depth, phase, noise,
+                               tile_group)
     grads = _gradients(loss, params + [m2d_offset])
     g_m2d = grads.pop()
     return visible, loss, aux, res, grads, g_m2d
@@ -221,16 +223,18 @@ def _update(optimizer: Adam, loss, grads: list, scalars=None):
 def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
                model: Model, stats: DensifyStats, cam: CameraArrays,
                gt_image, gt_depth, phase: int, track_stats: bool,
-               noise: DecodeNoise | None = None, scalars=None):
+               noise: DecodeNoise | None = None, scalars=None,
+               tile_group=None):
     """One SGD step (``_step_core``, loop.py:100-168). Its parts run under
     ``record_function`` spans (``train.prefilter``, ``train.forward``,
     ``train.backward``, ``train.update``, ``train.stats``) that a
     ``torch.profiler`` run reads (``profile_render_torch.py --train``).
     ``scalars`` is Adam's row for the step in the device loop
-    (``Adam.step``)."""
+    (``Adam.step``); ``tile_group`` blends tile-parallel."""
     params = [t for _, _, t in optimizer.params]
     visible, loss, aux, res, grads, g_m2d = step_gradients(
-        cfg, intr, bg, model, params, cam, gt_image, gt_depth, phase, noise)
+        cfg, intr, bg, model, params, cam, gt_image, gt_depth, phase, noise,
+        tile_group)
     ok = _update(optimizer, loss, grads, scalars)
 
     if track_stats:
@@ -260,15 +264,15 @@ def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
 
 def make_dp_train_step(cfg: GSConfig, intr: Intrinsics, optimizer: Adam,
                        bg: torch.Tensor,
-                       generator: torch.Generator | None = None):
+                       generator: torch.Generator | None = None, mesh=None):
     """A step over a batch of B views with the mean of their losses (JAX's
-    ``make_dp_train_step`` with ``mesh=None``, loop.py:171-289): each view
-    prefiltered and rendered (remat per view, as ``step_gradients``)
-    inside one autograd graph, one backward, the non-finite skip and one
-    Adam step, then the densify statistics of each view in order with its
-    mean2d gradient times B (the gradient of the mean is 1/B of the view's,
-    so B views count as B single-view steps of the reference's
-    training_statis, gaussian_model.py:742-759).
+    ``make_dp_train_step``, loop.py:171-289): each view prefiltered,
+    rendered (remat per view, as ``step_gradients``) and differentiated on
+    its own, the gradient of the mean loss the views' gradients summed in
+    view order over B, the non-finite skip and one Adam step, then the
+    densify statistics of each view in order with its own mean2d gradient
+    (JAX's gradient of the mean times B: B views count as B single-view
+    steps of the reference's training_statis, gaussian_model.py:742-759).
 
     step(model, stats, cams, gt_images, gt_depths, idx, *, phase,
     track_stats, noise=None) -> (model, stats, StepMetrics): ``cams`` a
@@ -277,7 +281,21 @@ def make_dp_train_step(cfg: GSConfig, intr: Intrinsics, optimizer: Adam,
     phases 1 and 2 each view's draws come from ``noise`` (one
     ``DecodeNoise`` a view) when given, else from ``generator``, in view
     order. The metrics are means over the views, the overflow counters
-    their maximum."""
+    their maximum.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``; the sharded branch,
+    loop.py:273-283) every rank of the mesh calls the step on the same
+    arguments: data rank d renders views [d B/D, (d + 1) B/D) (B divisible
+    by the data size D), tile-parallel over the tile axis; the draws are
+    taken for the whole batch in view order on every rank, so the
+    generator moves as in the one-process step. Each view's gradient,
+    scalars and densify inputs are all-gathered over the data axis, and
+    every rank sums and accumulates them in view order: every rank takes
+    the one-process step's update, statistics and metrics bit for bit.
+    (An ``all_reduce`` of per-rank sums would round in the backend's order:
+    the step would differ from the one-process one in the last bits, which
+    Adam and the surgery's thresholds carry further; on a CPU run 3 of
+    9.5K anchors came out otherwise at the first surgery.)"""
 
     def dp_step(model: Model, stats: DensifyStats, cams: CameraArrays,
                 gt_images, gt_depths, idx, *, phase: int, track_stats: bool,
@@ -289,63 +307,120 @@ def make_dp_train_step(cfg: GSConfig, intr: Intrinsics, optimizer: Adam,
                                 generator, model.state.device)
                      for _ in views]
         return _dp_step_core(cfg, intr, optimizer, bg, model, stats, views,
-                             phase, track_stats, noise)
+                             phase, track_stats, noise, mesh)
 
     return dp_step
 
 
 def _dp_step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
                   model: Model, stats: DensifyStats, views: list,
-                  phase: int, track_stats: bool, noise: list):
+                  phase: int, track_stats: bool, noise: list, mesh=None):
     B = len(views)
+    data = tile = None
+    if mesh is not None:
+        from ..parallel.mesh import shard_batch
+        data, tile = mesh.axis('data'), mesh.axis('tile')
+        views, noise = shard_batch(views, mesh), shard_batch(noise, mesh)
     params = [t for _, _, t in optimizer.params]
-    with record_function("train.prefilter"):
-        visibles = [prefilter_anchors(model, intr, cam)
-                    for cam, _, _ in views]
     n_child = decoded_rows(model, cfg) * model.state.n_offsets
-    m2ds = [torch.zeros((n_child * 2,), device=v.device, requires_grad=True)
-            for v in visibles]
-    out = [view_loss(cfg, intr, bg, model, vis, m2d, cam, gt_i, gt_d, phase,
-                     nz)
-           for vis, m2d, (cam, gt_i, gt_d), nz
-           in zip(visibles, m2ds, views, noise)]
-    with torch.enable_grad():
-        loss = torch.mean(torch.stack([o[0] for o in out]))
-    grads = _gradients(loss, params + m2ds)
-    g_m2d = grads[len(params):]
-    ok = _update(optimizer, loss, grads[:len(params)])
-
+    # one row a view: its flat parameter gradient, its StepMetrics scalars
+    # and, with the statistics, its densify inputs
+    rows = []
+    for (cam, gt_i, gt_d), nz in zip(views, noise):
+        with record_function("train.prefilter"):
+            vis = prefilter_anchors(model, intr, cam)
+        m2d = torch.zeros((n_child * 2,), device=vis.device,
+                          requires_grad=True)
+        loss_b, aux, res = view_loss(cfg, intr, bg, model, vis, m2d, cam,
+                                     gt_i, gt_d, phase, nz, tile)
+        grads = _gradients(loss_b, params + [m2d])
+        row = [torch.cat([g.reshape(-1) for g in grads[:-1]]),
+               *view_record(loss_b, aux, res, vis)]
+        if track_stats:
+            row += [*stats_args(None, res, vis, grads[-1])[1:],
+                    res.visible_idx]
+        rows.append(row)
+    if data is not None:
+        with record_function("train.gather"):
+            rows = gather_rows(data, rows)
+    with torch.no_grad():
+        total = rows[0][0]
+        for r in rows[1:]:
+            total = total + r[0]
+        total = total / B
+        g_params = [f.view_as(p) for f, p in zip(
+            total.split([p.numel() for p in params]), params)]
+        loss = torch.mean(torch.stack([r[1] for r in rows]))
+    ok = _update(optimizer, loss, g_params)
+    n_rec = len(StepMetrics._fields)
     if track_stats:
         with record_function("train.stats"):
-            for (_, _, res), vis, g in zip(out, visibles, g_m2d):
+            for r in rows:
                 stats = densify.accumulate_stats(
-                    stats, res.dec.neural_opacity.detach(), res.dec.valid,
-                    res.proj.valid, vis, g * B, intr.width, intr.height,
-                    anchor_idx=res.visible_idx)
+                    stats, *r[n_rec:n_rec + 5], intr.width, intr.height,
+                    anchor_idx=r[n_rec + 5])
+    return model, stats, batch_metrics(loss, [r[1:n_rec] for r in rows], ok)
+
+
+def stats_args(stats: DensifyStats, res, visible, g_m2d) -> tuple:
+    """``accumulate_stats``'s per-view arguments of one view's render."""
+    return (stats, res.dec.neural_opacity.detach(), res.dec.valid,
+            res.proj.valid, visible, g_m2d)
+
+
+def view_record(loss, aux: dict, res, visible) -> list:
+    """One view's scalars, in ``StepMetrics`` order (without ``skipped``)."""
+    return [loss.detach(), aux['loss_rgb'], aux['loss_dep_value'],
+            aux['loss_dep_domin'], aux['loss_dep_smooth'],
+            res.rate.bit_per_param, aux['psnr'], torch.sum(visible),
+            res.bins.tile_overflow, res.bins.pair_overflow,
+            res.bins.packed_overflow, res.bins.num_pairs]
+
+
+def batch_metrics(loss, records: list, ok) -> StepMetrics:
+    """A batch's ``StepMetrics`` from its views' ``view_record``s in view
+    order: ``loss`` the batch's, the overflow counters' maxima and the
+    other values' means (loop.py:257-269)."""
+    cols = list(zip(*records))
 
     def mean(xs):
         return torch.mean(torch.stack([x.detach().to(torch.float32)
                                        for x in xs]))
+    values = {f: (torch.amax(torch.stack(c)) if f.endswith('_overflow')
+                  else mean(c))
+              for f, c in zip(StepMetrics._fields[1:], cols[1:])}
+    return StepMetrics(loss=loss.detach(), **values,
+                       skipped=(~ok).to(torch.int32))
 
-    def biggest(xs):
-        return torch.amax(torch.stack(xs))
-    aux = [o[1] for o in out]
-    res = [o[2] for o in out]
-    metrics = StepMetrics(
-        loss=loss.detach(),
-        loss_rgb=mean([a['loss_rgb'] for a in aux]),
-        loss_dep_value=mean([a['loss_dep_value'] for a in aux]),
-        loss_dep_domin=mean([a['loss_dep_domin'] for a in aux]),
-        loss_dep_smooth=mean([a['loss_dep_smooth'] for a in aux]),
-        bit_per_param=mean([r.rate.bit_per_param for r in res]),
-        psnr=mean([a['psnr'] for a in aux]),
-        n_visible_anchors=mean([torch.sum(v) for v in visibles]),
-        tile_overflow=biggest([r.bins.tile_overflow for r in res]),
-        pair_overflow=biggest([r.bins.pair_overflow for r in res]),
-        packed_overflow=biggest([r.bins.packed_overflow for r in res]),
-        num_pairs=mean([r.bins.num_pairs for r in res]),
-        skipped=(~ok).to(torch.int32))
-    return model, stats, metrics
+
+def gather_rows(axis, rows: list) -> list:
+    """This rank's rows (lists of tensors, or None, of the same shapes and
+    dtypes on every rank) -> every rank's rows in rank order, from one
+    ``all_gather`` of their bytes."""
+    if axis.group is None:
+        return rows
+    parts = [t.detach().reshape(-1).view(torch.uint8) for row in rows
+             for t in row if t is not None]
+    # each tensor starts on an 8-byte boundary, so its bytes view back
+    sizes = [(p.numel() + 7) // 8 * 8 for p in parts]
+    buf = torch.zeros(sum(sizes), dtype=torch.uint8, device=parts[0].device)
+    for p, off in zip(parts, np.cumsum([0] + sizes[:-1])):
+        buf[off:off + p.numel()] = p
+    out = []
+    for got in axis.all_gather(buf):
+        off = 0
+        for row in rows:
+            new = []
+            for t in row:
+                if t is None:
+                    new.append(None)
+                    continue
+                nbytes = t.numel() * t.element_size()
+                new.append(got[off:off + nbytes].view(t.dtype)
+                           .view(t.shape))
+                off += (nbytes + 7) // 8 * 8
+            out.append(new)
+    return out
 
 
 # --- the device loop ---------------------------------------------------------
@@ -480,16 +555,31 @@ class Trainer:
 
     ``dp_batch=B`` makes every step a batch of B views with the mean loss
     (``make_dp_train_step``), on this one device; ``run`` then takes that
-    path whatever ``device_loop`` says, as the JAX trainer does."""
+    path whatever ``device_loop`` says, as the JAX trainer does.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` over ranks that each build this
+    trainer with the same arguments; loop.py:336-370) makes the batched
+    step data parallel: ``dp_batch`` defaults to the data axis' size and
+    must divide by it, and the model's leaves are broadcast from rank 0.
+    The ranks keep the same state bit for bit. ``save`` writes from rank 0
+    only and returns once the file is there; every rank ``restore``s."""
 
     def __init__(self, model: Model, cfg: GSConfig, intr: Intrinsics,
                  voxel_size: float, spatial_lr_scale: float = 1.0,
                  bg: np.ndarray | None = None, seed: int = 0,
-                 device: str = "cuda", dp_batch: int | None = None):
+                 device: str = "cuda", dp_batch: int | None = None,
+                 mesh=None):
         dev = resolve_device(device)
         if model.state.device != dev:
             raise ValueError(f"model lives on {model.state.device}, "
                              f"training requested on {dev}")
+        if mesh is not None:
+            data = mesh.shape['data']
+            dp_batch = dp_batch or data
+            if dp_batch % data:
+                raise ValueError(
+                    f"dp_batch={dp_batch} must be divisible by the mesh "
+                    f"'data' axis size {data}")
         self.cfg = cfg
         self.intr = intr
         self.voxel_size = voxel_size
@@ -515,8 +605,12 @@ class Trainer:
         # trainer's np_rng
         self.densify_rng = np.random.default_rng(seed)
         self.dp_batch = dp_batch
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import broadcast_tree
+            broadcast_tree(self._leaves(), mesh)
         self.dp_step_fn = (make_dp_train_step(cfg, intr, self.optimizer,
-                                              self.bg, self.noise_gen)
+                                              self.bg, self.noise_gen, mesh)
                            if dp_batch else None)
         self.history: list[dict] = []
         self.step = 0
@@ -541,7 +635,14 @@ class Trainer:
         trainer saves no numpy generator, loop.py:379-386).
 
         The file is the port's own format; the JAX package cannot load it
-        (its trainer checkpoint holds optax's state and a JAX key)."""
+        (its trainer checkpoint holds optax's state and a JAX key). Under a
+        mesh rank 0 writes, and every rank returns once it has."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self._write(path)
+        if self.mesh is not None:
+            self.mesh.world.all_reduce(torch.zeros(1, device=self.bg.device))
+
+    def _write(self, path: str) -> None:
         m = self.model
         arrays = {f'state.{f}': t.detach().cpu().numpy()
                   for f, t in m.state.flat_leaves().items()}
@@ -796,16 +897,20 @@ class Trainer:
                 self._replayed.append(graph)
         main.wait_stream(self._stream)
 
+    def _leaves(self) -> list:
+        """The model's tensors: the state's leaves, the heads' parameters,
+        the hash tables and the bounds."""
+        m = self.model
+        return [*m.state.flat_leaves().values(), *m.heads.parameters(),
+                *m.grid.values(), *m.bounds]
+
     def _storage_key(self, buf: LoopBuffers) -> tuple:
         """The address and shape of every tensor a captured step reads or
         writes in place: the model's leaves, Adam's moments, the
         statistics and the loop's buffers."""
-        m = self.model
-        tensors = [*m.state.flat_leaves().values(),
-                   *m.heads.parameters(), *m.grid.values(), *m.bounds,
-                   *self.optimizer.m, *self.optimizer.v, *self.stats,
-                   *buf.cams, buf.gt_images, buf.gt_depths, buf.cam_idx,
-                   buf.counter, buf.scalars, buf.metrics]
+        tensors = [*self._leaves(), *self.optimizer.m, *self.optimizer.v,
+                   *self.stats, *buf.cams, buf.gt_images, buf.gt_depths,
+                   buf.cam_idx, buf.counter, buf.scalars, buf.metrics]
         return tuple((t.data_ptr(), tuple(t.shape)) for t in tensors)
 
     def _emit_record(self, it, metric_items, info, callback):

@@ -170,15 +170,60 @@ nonzero:
 25. fit_single_view: ``examples.fit_single_view.fit(steps=FIT_STEPS)``
    with the host loop and with the device loop: the last loss bit for
    bit, the render improved by both, their wall seconds.
+26. strip_kernels: on one 512x512 orbit frame's bins and on one phase-0
+   training step's, at STRIP_TILES (16, 12: a partial last warp, 40: split
+   into blocks), K1 and K2 on the positions' halves [0, T/2) and
+   [T/2, T) equal the full call's columns bit for bit; the full call holds
+   against its plain version as in phases 4 and 8 (K1 bitwise, K2 within
+   its magnitude tolerance); the times of the full call and of each
+   strip, beside phases 4's and 8's times of the same full calls.
+27-30 run in RANKS processes sharing the card over gloo (NCCL takes one
+rank a device), spawned by ``parallel.launch.spawn`` and joined under
+RANK_TIMEOUT: a rank that fails or hangs raises out of the script. The
+ranks load the scene that phase 2 built (saved once, with the perturbed
+start, under outputs/chip_smoke/parallel); the one-process results come
+first, from this process. Every launch counter is set to 0 just before
+each path and read just after, in each rank.
+27. tile_parallel: a (1, RANKS) mesh on phase 2's scene at 512x512:
+   ``make_tile_parallel_render`` of the first orbit frame (eval and train
+   mode) and one phase-0 ``make_tile_parallel_train_step`` from the
+   perturbed start: color, depth, loss and every updated leaf bitwise the
+   one-process ``render`` and ``make_train_step``; each rank launches K1
+   once a frame and K1 twice (remat) and K2 once a step, on its 512 of the
+   1,024 positions; the ms a frame and a step of each rank beside the
+   one-process ms.
+28. dp_mesh: ``Trainer(mesh=(RANKS, 1), dp_batch=MESH_BATCH)`` at full
+   width over the 8 orbit views at MESH_SCHEDULE (DP_STEPS phase-0 steps,
+   then phase-2 steps across one ``adjust_anchor``): the loss within
+   tests/test_parallel.py:185-189's tolerances of the one-process
+   ``Trainer(dp_batch=MESH_BATCH)``'s and the psnr within 5e-3, the same
+   surgery and the same anchors alive, the ranks' leaves, Adam states,
+   statistics, generators and records bitwise equal to each other, K2
+   once a view and hashgrid_bwd 4 times a phase-2 view on each rank; the
+   ms a step and a view.
+29. nccl_world1: one process, NCCL at world size 1,
+   ``Trainer(mesh=(1, 1), dp_batch=MESH_BATCH)`` for NCCL_STEPS steps:
+   the state and records bitwise those of ``Trainer(dp_batch=MESH_BATCH)``
+   from the same start in the same process.
+30. ring: ``ring_render`` over the RANKS ranks of a seeded
+   RING_SPLATS-splat scene at RING_SIZE x RING_SIZE: the image and the
+   gradients of tests/test_ring.py's loss against ``rasterize_reference``
+   on the card within that test's tolerances (the scene's minimum final
+   T above 2e-4, its precondition), every rank the same; the wall ms of
+   the ring's forward and of forward and backward.
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
 K4 at the render's shapes with their training, post-schedule, decoded,
 grown, pipeline and cold-start shapes under ``train_shape``,
 ``schedule_shape``, ``decoded_shape``, ``growth_shape``, ``pipeline_shape``
 and ``cold_start_shape``, K2 at the training shape with its schedule,
-growth and pipeline shapes, hashgrid_bwd at a phase-2 step's; launches of the render, train, schedule, decoded orbit and growth
-paths, the pipeline, the cold start, the device loop and its growth run
-(graph replays counted), the batched trainer and fit_single_view; the ptxas report of each:
+growth and pipeline shapes, hashgrid_bwd at a phase-2 step's; K1's
+and K2's strips of phase 26 at tile 16 under ``strip_shape``,
+``train_strip_shape`` and ``render_strip_shape``; launches of the
+render, train, schedule, decoded orbit and growth paths, the pipeline,
+the cold start, the device loop and its growth run (graph replays
+counted), the batched trainer, fit_single_view, and phases 27, 28 and 29
+(summed over the ranks); the ptxas report of each:
 registers, static shared memory, spill bytes; for K1 and K2 also the
 block shape and dynamic shared memory), the one before it
 the card's name and power limit; the last line is
@@ -273,6 +318,31 @@ PIPELINE_FILES = ("settings.json", "traindata.npz", "point_cloud.ply",
 # (the default 1,024 x its area over tile 16's)
 TILES = (8, 12, 16, 40, 64)
 TILE_CAPACITY = {40: 6400, 64: 16384}
+# phase 26: K1 and K2 on strips of positions, at these tiles (12: a partial
+# last warp; 40: a tile split into blocks)
+STRIP_TILES = (16, 12, 40)
+# phases 27, 28 and 30: gloo ranks sharing the card (NCCL takes one rank a
+# device), spawned together and joined under one deadline (seconds)
+RANKS = 2
+RANK_TIMEOUT = 600.0
+PARALLEL_REPS = 3              # timed frames and steps
+# phase 28: the batched trainer on a (RANKS, 1) mesh, phase 10's step
+# numbers cut down (no phase 1): DP_STEPS phase-0 steps, the bounds
+# refresh at step DP_STEPS, then phase-2 steps with adjust_anchor at
+# DP_STEPS + 2; tests/test_parallel.py:185-189's tolerances against
+# the one-process trainer
+MESH_BATCH = 4
+MESH_SCHEDULE = dict(voxel_size=0.03, use_dpr=True, start_stat=0,
+                     iterations=DP_STEPS + 4, noise_from_step=DP_STEPS,
+                     context_from_step=DP_STEPS, update_from=5,
+                     update_interval=DP_STEPS + 2, update_until=40)
+MESH_LOSS_TOL = dict(rtol=5e-4, atol=1e-5)
+MESH_PSNR_RTOL = 5e-3
+NCCL_STEPS = 3                 # phase 29
+# phase 30: the ring's scene and tests/test_ring.py's tolerances
+RING_SPLATS, RING_SIZE = 4096, 128
+RING_TOL = {"color": (1e-5, 1e-5), "depth": (1e-4, 1e-4)}
+RING_GRAD_ATOL, RING_GRAD_RTOL = 3e-5, 2e-4   # atol of each largest
 
 
 def emit(obj: dict) -> None:
@@ -2041,6 +2111,609 @@ def fit_phase(workdir: str, counters: dict):
         all(checks.values()), fwd_rows, k2_row
 
 
+
+# --- phases 26-30: the parallel layer ------------------------------------
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits (a zero's sign counts), else the tensor."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: two ranks' states compare by
+    it bit for bit without moving them."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def strip_check(slab, counts_p, perm, tile: int, gx: int, u=None,
+                plain_times: bool = False):
+    """K1 and K2 on the positions' two halves [0, T/2) and [T/2, T) against
+    the full call's columns, bit for bit; the full call against its plain
+    version (K1 bitwise, K2 within the magnitude tolerance: with ``u``, a
+    training step's cotangent planes, scaled to a per-pixel scale as in
+    phase 8; else seeded per-pixel planes as in phase 18); the times of
+    the full call and of each strip; with ``plain_times`` the strip's
+    plain versions' too and the strip's kernel-line entries."""
+    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
+                                                     blend_backward_plain,
+                                                     blend_forward,
+                                                     blend_forward_plain)
+    T = counts_p.numel()
+    strips = ((0, T // 2), (T // 2, T - T // 2))
+    args = (slab, counts_p, perm, tile, gx)
+    full = blend_forward(*args)
+    plain = blend_forward_plain(*args)
+    k1_plain = all(bit_equal(a, b) for a, b in zip(full, plain))
+    k1_strips = all(bit_equal(a, b[:, p0:p0 + n])
+                    for p0, n in strips
+                    for a, b in zip(blend_forward(*args, p0, n), full))
+    if u is None:
+        rng = np.random.default_rng(SEED + 8)
+        u = [torch.from_numpy(rng.normal(size=full[5].shape).astype(
+            np.float32)).to(slab.device) for _ in range(6)]
+    bargs = (*args, full[5], full[6], *u)
+    got = blend_backward(*bargs)
+    want = blend_backward_plain(*bargs)
+    tol = GRAD_ATOL + GRAD_RTOL * blend_backward_plain(*bargs,
+                                                       magnitude=True)
+    k2_plain = bool(((got - want).abs() <= tol).all())
+    k2_strips = all(bit_equal(blend_backward(*bargs, p0=p0, n=n),
+                              got[..., p0:p0 + n]) for p0, n in strips)
+    cap = slab.shape[1]
+    out = {"positions": T, "strips": [list(x) for x in strips],
+           "k1_bitwise_plain": k1_plain, "k1_strips_bitwise": k1_strips,
+           "k2_within_tolerance": k2_plain, "k2_strips_bitwise": k2_strips,
+           "k1_max_abs_err": max(max_abs(a, b) for a, b in zip(full, plain)),
+           "k2_max_abs_err": max_abs(got, want),
+           "k1_ms": time_ms(lambda: blend_forward(*args), 50),
+           "k1_strip_ms": [time_ms(lambda: blend_forward(*args, p0, n), 50)
+                           for p0, n in strips],
+           "k2_ms": time_ms(lambda: blend_backward(*bargs), 20),
+           "k2_strip_ms": [time_ms(lambda: blend_backward(*bargs, p0=p0,
+                                                           n=n), 20)
+                           for p0, n in strips]}
+    ok = k1_plain and k1_strips and k2_plain and k2_strips
+    if not plain_times:
+        return out, ok
+    p0, n = strips[0]
+    ncon = full[6][:, p0:p0 + n]
+    k1_b, k1_by = k1_bound(counts_p[p0:p0 + n], ncon, tile)
+    k2_b, k2_by = k2_bound(counts_p[p0:p0 + n], ncon, tile, cap)
+    shape = {"positions": n, "of": T, "p0": p0, "slab": list(slab.shape)}
+    k1_entry = dict(
+        max_abs_err=out["k1_max_abs_err"], ms=out["k1_strip_ms"][0],
+        plain_ms=time_ms(lambda: blend_forward_plain(*args, p0, n), 1),
+        bound_ms=k1_b, bound_by=k1_by, library_ms=None, shapes=shape)
+    k2_entry = dict(
+        max_abs_err=out["k2_max_abs_err"], ms=out["k2_strip_ms"][0],
+        plain_ms=time_ms(lambda: blend_backward_plain(*bargs, p0=p0, n=n), 1),
+        bound_ms=k2_b, bound_by=k2_by, library_ms=None, shapes=shape)
+    return out, ok, k1_entry, k2_entry
+
+
+def strip_phase(model, cam, cfg, trainer, cfg_t, views):
+    """Phase 26: ``strip_check`` on one 512x512 orbit frame's bins (the
+    untrained scene, eval mode, as phase 18 renders it) and on one phase-0
+    training step's (phase 7's trainer, as phase 8), at STRIP_TILES; a tile
+    above 32 binned with TILE_CAPACITY slots. At tile 16 the inputs are
+    those of phases 4 and 8, whose full-call times this phase's repeat in
+    the same run."""
+    import dataclasses
+    from bloomscene_tpu_torch.models.render import prefilter_anchors, render
+    from bloomscene_tpu_torch.ops.tiles import tile_grid
+    intr = cam.intrinsics
+    arrs = cam.device_arrays(model.state.device)
+    vis = prefilter_anchors(model, intr, arrs)
+    out, ok, entries = {}, True, {}
+    for tile in STRIP_TILES:
+        cap = TILE_CAPACITY.get(tile, cfg.max_splats_per_tile)
+        gx, _ = tile_grid(intr.width, intr.height, tile)
+        c = dataclasses.replace(cfg, tile_size=tile, max_splats_per_tile=cap)
+        res = render(model, intr, arrs, c, mode="eval", visible=vis,
+                     pair_capacity=1 << 21, packed_capacity=1 << 21)
+        b = res.bins
+        counts_p = b.counts[b.perm.long()].contiguous()
+        got = strip_check(b.slab, counts_p, b.perm, tile, gx,
+                          plain_times=tile == 16)
+        if tile == 16:
+            got, good, entries["k1_render"], entries["k2_render"] = got
+        else:
+            got, good = got
+        out[f"render_frame_tile{tile}"] = got
+        ok = ok and good
+        c_t = dataclasses.replace(cfg_t, tile_size=tile,
+                                  max_splats_per_tile=TILE_CAPACITY.get(
+                                      tile, cfg_t.max_splats_per_tile))
+        res_t, counts_t, gx, _, _, u = train_blend_inputs(trainer, c_t, views)
+        bt = res_t.bins
+        scale = float(intr.width * intr.height * 3)
+        got = strip_check(bt.slab, counts_t, bt.perm, tile, gx,
+                          [x * scale for x in u], plain_times=tile == 16)
+        if tile == 16:
+            got, good, entries["k1_train"], entries["k2_train"] = got
+        else:
+            got, good = got
+        out[f"train_step_tile{tile}"] = got
+        ok = ok and good
+    return out, ok, entries
+
+
+def start_model(fresh):
+    """The perturbed start every training phase of 27-29 takes."""
+    from bloomscene_tpu_torch.convert import model_to
+    return perturbed(model_to(fresh, fresh.state.device), SEED)
+
+
+def device_views(cams, frames, depths, dev):
+    return [(c.device_arrays(dev), torch.as_tensor(f, device=dev),
+             torch.as_tensor(d, device=dev))
+            for c, f, d in zip(cams, frames, depths)]
+
+
+def ring_scene(n: int, size: int, device):
+    """Phase 30's scene: tests/test_ring.py's draws (opacity 0.05-0.35,
+    scales 0.01-0.08) at ``n`` Gaussians, projected at size x size, with
+    the loss's targets."""
+    from bloomscene_tpu_torch.ops import graphics, projection
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 9)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    means = np.stack([rng.uniform(-1.2, 1.2, n), rng.uniform(-1.2, 1.2, n),
+                      rng.uniform(0.8, 6.0, n)], -1)
+    scales = rng.uniform(0.01, 0.08, (n, 3))
+    quats = rng.normal(size=(n, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    view = graphics.world_to_view(np.eye(3), np.zeros(3))
+    full = graphics.projection_matrix(0.01, 100.0, 1.0, 1.0) @ view
+    f = graphics.fov2focal(1.0, size)
+    proj = projection.project_gaussians(
+        t(means), projection.build_cov3d(t(scales), t(quats)), t(view),
+        t(full), size, size, f, f, float(np.tan(0.5)), float(np.tan(0.5)))
+    return dict(proj=proj, colors=t(rng.uniform(0, 1, (n, 3))),
+                opac=t(rng.uniform(0.05, 0.35, n)), bg=t([0.1, 0.2, 0.3]),
+                tgt_c=t(rng.uniform(0, 1, (size, size, 3))),
+                tgt_d=t(rng.uniform(0, 5, (size, size))))
+
+
+def ring_loss_grads(scene, raster):
+    """test_ring.py's loss through ``raster(proj, colors, opac, bg)`` ->
+    (color, depth, final_T or None, loss, gradients for mean2d, conic,
+    colors and opacities)."""
+    from bloomscene_tpu_torch.ops.projection import ProjectedSplats
+    p = scene["proj"]
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (p.mean2d, p.conic, scene["colors"], scene["opac"])]
+    proj = ProjectedSplats(mean2d=leaves[0], depth=p.depth, conic=leaves[1],
+                           radius=p.radius, valid=p.valid)
+    color, depth, final_T = raster(proj, leaves[2], leaves[3], scene["bg"])
+    loss = (torch.mean((color - scene["tgt_c"]) ** 2)
+            + 0.3 * torch.mean((depth - scene["tgt_d"]) ** 2))
+    grads = torch.autograd.grad(loss, leaves)
+    return (color.detach(), depth.detach(), final_T, loss.detach(),
+            [g.detach() for g in grads])
+
+
+def trainer_digest(tr) -> dict:
+    """Digests of a trainer's state: leaves, Adam's moments, the
+    statistics and the generators."""
+    return {"leaves": digest(tr._leaves()),
+            "adam": digest([*tr.optimizer.m, *tr.optimizer.v]),
+            "count": tr.optimizer.count,
+            "stats": digest(tr.stats),
+            "noise_gen": digest([tr.noise_gen.get_state()]),
+            "rng": json.dumps(tr.rng.bit_generator.state),
+            "densify_rng": json.dumps(tr.densify_rng.bit_generator.state)}
+
+
+def counters_of() -> dict:
+    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
+                                                     blend_forward)
+    from bloomscene_tpu_torch.ops.cuda.expand import expand_slab
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import grid_scatter
+    from bloomscene_tpu_torch.ops.cuda.pairs import expand_pairs
+    return {"pair_expansion": expand_pairs, "slab_expansion": expand_slab,
+            "blend_forward": blend_forward, "blend_backward": blend_backward,
+            "hashgrid_bwd": grid_scatter}
+
+
+def counted(fn, counters: dict):
+    """fn() with every launch counter set to 0 just before and read just
+    after -> (result, launches)."""
+    for c in counters.values():
+        c.launches = 0
+    result = fn()
+    return result, {k: c.launches for k, c in counters.items()}
+
+
+def synced_ms(fn, reps: int) -> float:
+    """Median wall ms of ``reps`` calls, each ending synchronized."""
+    dev = torch.cuda.is_available()
+    ts = []
+    for _ in range(reps):
+        if dev:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if dev:
+            torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def tile_parallel_run(job: dict, mesh):
+    """Phase 27's work on one rank (``mesh`` a (1, S) mesh) or, with mesh
+    None, in one process: ``make_tile_parallel_render`` (or ``render``) of
+    the first orbit frame in eval and train mode, and one phase-0
+    ``make_tile_parallel_train_step`` (or ``make_train_step``) on the first
+    view from the perturbed start; each counted, then timed."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models.render import render
+    from bloomscene_tpu_torch.parallel.sharded import (
+        make_tile_parallel_render, make_tile_parallel_train_step)
+    from bloomscene_tpu_torch.train.loop import make_train_step
+    from bloomscene_tpu_torch.train.optim import Adam, make_trainable
+    dev = torch.device(job["device"])
+    counters = counters_of()
+    cfg, cfg_t = GSConfig(**job["cfg"]), GSConfig(**job["cfg_t"])
+    cam = job["cams"][0]
+    intr, arrs = cam.intrinsics, cam.device_arrays(dev)
+    model = model_to(job["model"], dev)
+    out = {}
+    for mode in ("eval", "train"):
+        if mesh is None:
+            def fn(mode=mode):
+                with torch.no_grad():
+                    return render(model, intr, arrs, cfg, mode=mode).out
+        else:
+            r1 = make_tile_parallel_render(cfg, intr, mesh, mode=mode)
+
+            def fn(r1=r1):
+                with torch.no_grad():
+                    return r1(model, arrs)
+        o, launches = counted(fn, counters)
+        out[mode] = {"color": o.color.cpu(), "depth": o.depth.cpu(),
+                     "launches": launches,
+                     "ms": synced_ms(fn, PARALLEL_REPS)}
+    bg = torch.zeros(3, device=dev)
+    trained = make_trainable(model_to(job["start"], dev))
+    adam = Adam(cfg_t, 1.0, trained)
+    if mesh is None:
+        single = make_train_step(cfg_t, intr, adam, bg)
+
+        def step():
+            return single(trained, None, *job_view(job, dev), phase=0,
+                          track_stats=False)[2].loss
+    else:
+        sharded = make_tile_parallel_train_step(cfg_t, intr, adam, bg, mesh)
+
+        def step():
+            return sharded(trained, *job_view(job, dev))[1]
+    loss, launches = counted(step, counters)
+    out["step"] = {"loss": float(loss), "loss_bits": digest([loss]),
+                   "leaves": digest([t for _, _, t in adam.params]),
+                   "launches": launches,
+                   "ms": synced_ms(step, PARALLEL_REPS)}
+    return out
+
+
+def job_view(job: dict, dev):
+    """The first orbit view on ``dev``: camera arrays, frame, depth."""
+    return (job["cams"][0].device_arrays(dev),
+            torch.as_tensor(job["frames"][0], device=dev),
+            torch.as_tensor(job["depths"][0], device=dev))
+
+
+def dp_mesh_run(job: dict, mesh, iterations: int):
+    """Phase 28's (and 29's) trainer: ``Trainer(dp_batch=MESH_BATCH)`` on
+    ``mesh`` (None: one process) at MESH_SCHEDULE over the orbit views,
+    from the perturbed start, for ``iterations`` steps (``timed_run``)."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.train.loop import Trainer
+    dev = torch.device(job["device"])
+    cfg = GSConfig(**MESH_SCHEDULE)
+    views = device_views(job["cams"], job["frames"], job["depths"], dev)
+    tr = Trainer(model_to(job["start"], dev), cfg, job["cams"][0].intrinsics,
+                 job["voxel"], seed=SEED, device=job["device"],
+                 dp_batch=MESH_BATCH, mesh=mesh)
+    records, ms, launches, wall, peak, caught = timed_run(
+        tr, views, iterations, counters_of())
+    return {"history": [{k: v for k, v in r.items() if k != "densify_time_s"}
+                        for r in records],
+            "ms": ms, "launches": launches, "wall_s": wall,
+            "peak_mem_bytes": peak, "warnings": len(caught),
+            "alive": digest([tr.model.state.alive]),
+            "n_alive": int(tr.model.state.alive.sum()),
+            "capacity": tr.model.state.capacity,
+            "state": trainer_digest(tr)}
+
+
+def timed_once(fn):
+    """(fn(), wall ms of that call, synchronized before and after)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def ring_run(job: dict, group):
+    """Phase 30 on one rank of the ring: ``ring_render`` of the ring scene,
+    forward and backward, and the wall ms of that call and of one forward
+    alone (each synchronized; a forward is ~70K launches, so one run
+    suffices)."""
+    from bloomscene_tpu_torch.parallel.ring import ring_render
+    scene = ring_scene(RING_SPLATS, RING_SIZE, job["device"])
+
+    def ring(p, c, o, b):
+        return (*ring_render(p, c, o, b, RING_SIZE, RING_SIZE, group), None)
+    (color, depth, _, loss, grads), fb_ms = timed_once(
+        lambda: ring_loss_grads(scene, ring))
+    _, fwd_ms = timed_once(lambda: ring(scene["proj"], scene["colors"],
+                                        scene["opac"], scene["bg"]))
+    return {"color": color.cpu(), "depth": depth.cpu(), "loss": float(loss),
+            "grads": [g.cpu() for g in grads], "forward_ms": fwd_ms,
+            "forward_backward_ms": fb_ms}
+
+
+def parallel_rank(rank: int, world: int, store: str, workdir: str):
+    """One of the RANKS gloo ranks sharing the card (phases 27, 28 and 30;
+    spawned by ``parallel.launch.spawn``): the (1, RANKS) mesh's
+    tile-parallel render and step, the (RANKS, 1) mesh's trainer, the
+    ring, each with the launch counters set to 0 just before and read
+    just after; the results into ``workdir``/rank<r>.pt."""
+    from bloomscene_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    init_distributed("gloo", f"file://{store}", world, rank, device="cuda")
+    job = torch.load(os.path.join(workdir, "job.pt"), weights_only=False)
+    out = {"tile_parallel": tile_parallel_run(job, make_mesh(1, world))}
+    out["dp_mesh"] = dp_mesh_run(job, make_mesh(world, 1),
+                                 MESH_SCHEDULE["iterations"])
+    out["ring"] = ring_run(job, make_mesh(1, world).axis("tile"))
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def nccl_rank(rank: int, world: int, store: str, workdir: str):
+    """Phase 29 in a process of its own: NCCL at world size 1 (joined
+    directly: ``init_distributed`` is a no-op at world size 1, as JAX's),
+    ``Trainer(mesh=(1, 1), dp_batch=MESH_BATCH)`` for NCCL_STEPS steps,
+    then ``Trainer(dp_batch=MESH_BATCH)`` from the same start."""
+    import torch.distributed as dist
+    from bloomscene_tpu_torch.parallel.mesh import make_mesh
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    job = torch.load(os.path.join(workdir, "job.pt"), weights_only=False)
+    mesh = make_mesh(1, 1)
+    out = {"backend": dist.get_backend(mesh.axis("data").group),
+           "mesh": dp_mesh_run(job, mesh, NCCL_STEPS),
+           "single": dp_mesh_run(job, None, NCCL_STEPS)}
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(workdir, "nccl.pt"))
+
+
+def parallel_job(workdir: str, fresh, cams, frames, depths, voxel: float,
+                 device: str = "cuda") -> dict:
+    """What the ranks load: the scene (its CPU copy, built once), the
+    perturbed start, the orbit's cameras, frames and depths, the configs."""
+    from bloomscene_tpu_torch.convert import model_to
+    job = {"model": model_to(fresh, "cpu"),
+           "start": model_to(start_model(fresh), "cpu"),
+           "cams": list(cams), "frames": np.asarray(frames),
+           "depths": np.asarray(depths), "voxel": voxel,
+           "cfg": dict(voxel_size=0.03),
+           "cfg_t": dict(voxel_size=0.03, use_dpr=True, start_stat=0),
+           "device": device}
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(job, os.path.join(workdir, "job.pt"))
+    return job
+
+
+def parallel_phases(workdir: str, job: dict):
+    """Phases 27, 28 and 30: the one-process results first (the card to
+    itself), then RANKS gloo ranks on the card in one spawn, joined under
+    RANK_TIMEOUT (a rank that fails or hangs raises out of the script).
+    Then phase 29: one NCCL rank."""
+    from bloomscene_tpu_torch.ops.reference_rasterizer import (
+        rasterize_reference)
+    from bloomscene_tpu_torch.parallel.launch import spawn
+    single = {"tile_parallel": tile_parallel_run(job, None),
+              "dp_mesh": dp_mesh_run(job, None, MESH_SCHEDULE["iterations"])}
+    scene = ring_scene(RING_SPLATS, RING_SIZE, job["device"])
+
+    def reference(p, c, o, b):
+        out = rasterize_reference(p, c, o, b, RING_SIZE, RING_SIZE)
+        return out.color, out.depth, out.final_T
+    single["ring"], single["ring_backward_ms"] = timed_once(
+        lambda: ring_loss_grads(scene, reference))
+    _, single["ring_ms"] = timed_once(
+        lambda: reference(scene["proj"], scene["colors"], scene["opac"],
+                          scene["bg"]))
+    for f in os.listdir(workdir):
+        if f.startswith("rank") or f.startswith("store") or f == "nccl.pt":
+            os.remove(os.path.join(workdir, f))
+    t0 = time.perf_counter()
+    spawn(parallel_rank, RANKS, (os.path.join(workdir, "store"), workdir),
+          timeout=RANK_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(RANKS)]
+    t0 = time.perf_counter()
+    spawn(nccl_rank, 1, (os.path.join(workdir, "store_nccl"), workdir),
+          timeout=RANK_TIMEOUT)
+    nccl_s = time.perf_counter() - t0
+    nccl = torch.load(os.path.join(workdir, "nccl.pt"), weights_only=False)
+    return (tile_parallel_summary(single, ranks),
+            dp_mesh_summary(single, ranks, ranks_s),
+            nccl_summary(nccl, nccl_s), ring_summary(single, ranks))
+
+
+def median_ms(ms: list):
+    """The median step ms after the first (None on the CPU)."""
+    return float(np.median(ms[1:])) if ms[0] is not None else None
+
+
+def tile_parallel_summary(single: dict, ranks: list):
+    s = single["tile_parallel"]
+    per = [r["tile_parallel"] for r in ranks]
+    checks = {}
+    for mode in ("eval", "train"):
+        checks[f"{mode}_bitwise"] = all(
+            bit_equal(p[mode]["color"], s[mode]["color"])
+            and bit_equal(p[mode]["depth"], s[mode]["depth"]) for p in per)
+        # each rank's K1 once a frame (on its strip), nothing backward
+        checks[f"{mode}_launches"] = all(
+            p[mode]["launches"]["blend_forward"] == 1
+            and p[mode]["launches"]["blend_backward"] == 0 for p in per)
+        checks[f"{mode}_finite"] = bool(
+            torch.isfinite(s[mode]["color"]).all())
+    checks["step_loss_bitwise"] = all(
+        p["step"]["loss_bits"] == s["step"]["loss_bits"] for p in per)
+    checks["step_leaves_bitwise"] = all(
+        p["step"]["leaves"] == s["step"]["leaves"] for p in per)
+    # remat: the forward twice, K2 once
+    checks["step_launches"] = all(
+        p["step"]["launches"]["blend_forward"] == 2
+        and p["step"]["launches"]["blend_backward"] == 1 for p in per)
+    launches = {k: sum(p[m]["launches"][k] for p in per
+                       for m in ("eval", "train", "step"))
+                for k in s["step"]["launches"]}
+    summary = {
+        "ranks": len(per), "backend": "gloo", "mesh": [1, len(per)],
+        "positions_per_rank": 1024 // len(per),
+        "frame_ms": {m: [p[m]["ms"] for p in per] for m in ("eval", "train")},
+        "frame_ms_single": {m: s[m]["ms"] for m in ("eval", "train")},
+        "step_ms": [p["step"]["ms"] for p in per],
+        "step_ms_single": s["step"]["ms"],
+        "loss": s["step"]["loss"], "launches": launches,
+        "rank_launches": [{m: p[m]["launches"] for m in ("eval", "train",
+                                                         "step")}
+                          for p in per],
+        "checks": checks}
+    return summary, all(checks.values())
+
+
+def dp_mesh_summary(single: dict, ranks: list, ranks_s: float):
+    s = single["dp_mesh"]
+    per = [r["dp_mesh"] for r in ranks]
+    h0, hs = per[0]["history"], s["history"]
+    n = MESH_SCHEDULE["iterations"]
+    views = MESH_BATCH // len(per)
+    p2 = [i for i in range(1, n + 1) if i > MESH_SCHEDULE["context_from_step"]]
+    dens = [r["iteration"] for r in h0 if "densify_n_alive" in r]
+    checks = {
+        "steps": len(h0) == len(hs) == n,
+        "loss_within": all(np.isclose(a["loss"], b["loss"], **MESH_LOSS_TOL)
+                           for a, b in zip(h0, hs)),
+        "psnr_within": all(np.isclose(a["psnr"], b["psnr"],
+                                      rtol=MESH_PSNR_RTOL, atol=0)
+                           for a, b in zip(h0, hs)),
+        "finite": all(np.isfinite(r["loss"]) for r in h0),
+        "no_skipped_update": all(r["skipped"] == 0 for r in h0),
+        "one_surgery": dens == [r["iteration"] for r in hs
+                                if "densify_n_alive" in r]
+        and len(dens) == 1,
+        "same_anchors_alive": all(p["alive"] == s["alive"] for p in per),
+        "ranks_bitwise_equal": all(p["state"] == per[0]["state"]
+                                   and p["history"] == h0 for p in per),
+        "blend_backward_once_a_view": all(
+            p["launches"]["blend_backward"] == views * n for p in per),
+        "hashgrid_bwd_4_a_phase2_view": all(
+            p["launches"]["hashgrid_bwd"] == 4 * views * len(p2)
+            for p in per),
+    }
+    step_ms = [median_ms(p["ms"]) for p in per]
+    single_ms = median_ms(s["ms"])
+    launches = {k: sum(p["launches"][k] for p in per)
+                for k in per[0]["launches"]}
+    summary = {
+        "ranks": len(per), "backend": "gloo", "mesh": [len(per), 1],
+        "batch": MESH_BATCH, "views_per_rank": views, "steps": n,
+        "phase2_steps": len(p2), "densify_at": dens,
+        "loss_first": h0[0]["loss"], "loss_last": h0[-1]["loss"],
+        "loss_single_last": hs[-1]["loss"],
+        "max_loss_rel_diff": max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                 for a, b in zip(h0, hs)),
+        "n_alive": per[0]["n_alive"], "capacity": per[0]["capacity"],
+        # both steps sum the views' gradients in view order
+        "bitwise_one_process": all(p["state"] == s["state"]
+                                   and p["history"] == hs for p in per),
+        "step_ms": [p["ms"] for p in per],
+        "step_ms_median": step_ms,
+        "view_ms_median": [m and m / views for m in step_ms],
+        "step_ms_single": s["ms"],
+        "step_ms_single_median": single_ms,
+        "view_ms_single_median": single_ms and single_ms / MESH_BATCH,
+        "wall_s": [p["wall_s"] for p in per], "wall_s_single": s["wall_s"],
+        "spawn_s": ranks_s, "peak_mem_bytes": [p["peak_mem_bytes"]
+                                              for p in per],
+        "launches": launches, "rank_launches": [p["launches"] for p in per],
+        "checks": checks}
+    return summary, all(checks.values())
+
+
+def nccl_summary(nccl: dict, seconds: float):
+    m, s = nccl["mesh"], nccl["single"]
+    checks = {
+        "backend_nccl": nccl["backend"] == "nccl",
+        "states_bitwise": m["state"] == s["state"],
+        "records_bitwise": m["history"] == s["history"],
+        "steps": len(m["history"]) == NCCL_STEPS,
+        "blend_backward_once_a_view":
+            m["launches"]["blend_backward"] == MESH_BATCH * NCCL_STEPS}
+    return {"backend": nccl["backend"], "mesh": [1, 1], "batch": MESH_BATCH,
+            "steps": NCCL_STEPS, "loss": [r["loss"] for r in m["history"]],
+            "step_ms": m["ms"], "step_ms_single": s["ms"],
+            "spawn_s": seconds, "launches": m["launches"],
+            "checks": checks}, all(checks.values())
+
+
+def ring_summary(single: dict, ranks: list):
+    color, depth, final_T, loss, grads = single["ring"]
+    per = [r["ring"] for r in ranks]
+    first = per[0]
+    (c_atol, c_rtol), (d_atol, d_rtol) = RING_TOL["color"], RING_TOL["depth"]
+    errs = {nm: max_abs(a, b.cpu()) for nm, a, b in zip(
+        ("mean2d", "conic", "colors", "opac"), first["grads"], grads)}
+    checks = {
+        "precondition_min_final_T": float(final_T.detach().min()) > 2e-4,
+        "color_within": bool(torch.allclose(first["color"], color.cpu(),
+                                            atol=c_atol, rtol=c_rtol)),
+        "depth_within": bool(torch.allclose(first["depth"], depth.cpu(),
+                                            atol=d_atol, rtol=d_rtol)),
+        "grads_within": all(bool(torch.allclose(
+            a, b.cpu(), atol=RING_GRAD_ATOL * float(b.abs().max()),
+            rtol=RING_GRAD_RTOL)) for a, b in zip(first["grads"], grads)),
+        "grads_finite": all(bool(torch.isfinite(a).all())
+                            for a in first["grads"]),
+        "ranks_equal": all(bit_equal(p["color"], first["color"])
+                           and all(bit_equal(a, b) for a, b in
+                                   zip(p["grads"], first["grads"]))
+                           for p in per)}
+    return {"ranks": len(per), "backend": "gloo", "splats": RING_SPLATS,
+            "size": RING_SIZE, "min_final_T": float(final_T.detach().min()),
+            "color_max_abs_err": max_abs(first["color"], color.cpu()),
+            "depth_max_abs_err": max_abs(first["depth"], depth.cpu()),
+            "loss": first["loss"], "loss_reference": float(loss),
+            "grad_max_abs_err": errs,
+            "forward_ms": [p["forward_ms"] for p in per],
+            "forward_backward_ms": [p["forward_backward_ms"] for p in per],
+            "reference_ms": single["ring_ms"],
+            "reference_forward_backward_ms": single["ring_backward_ms"],
+            "checks": checks}, all(checks.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2302,7 +2975,8 @@ def main() -> int:
     emit({"phase": "phase2_ab", "card": card, **ab, "ok": ab_ok})
     if not ab_ok:
         failed.append("phase2_ab")
-    del trainer, trainer_s, trainer_g
+    # phase 7's trainer stays for phase 26
+    del trainer_s, trainer_g
     torch.cuda.empty_cache()
 
     # 20. the CLI as a user runs it: generate, train, compress, save,
@@ -2377,6 +3051,40 @@ def main() -> int:
     if not fit_ok:
         failed.append("fit_single_view")
 
+    # 26. K1 and K2 on strips of positions, against the full call
+    t0 = time.perf_counter()
+    strips, strips_ok, strip_entries = strip_phase(
+        model_to(fresh, fresh.state.device), cams[0], cfg, trainer, cfg_t,
+        views)
+    emit({"phase": "strip_kernels", "card": card, "tiles": STRIP_TILES,
+          "inputs": strips,
+          # the same full calls' times in phases 4 and 8 of this run
+          "k1_ms_phase4": rows[2]["ms"], "k1_ms_phase8": fwd_rows[2]["ms"],
+          "k2_ms_phase8": row["ms"],
+          "seconds": time.perf_counter() - t0, "ok": strips_ok})
+    if not strips_ok:
+        failed.append("strip_kernels")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 27-30. the parallel layer: RANKS gloo ranks on the card (the
+    # tile-parallel render and step, the data-parallel trainer, the
+    # ring), then one NCCL rank
+    job = parallel_job(os.path.join(workdir, "parallel"), fresh, cams,
+                       frames, depths, voxel)
+    t0 = time.perf_counter()
+    (tp, tp_ok), (dpm, dpm_ok), (nccl, nccl_ok), (ring, ring_ok) = \
+        parallel_phases(os.path.join(workdir, "parallel"), job)
+    parallel_s = time.perf_counter() - t0
+    for name, summary_, good in (("tile_parallel", tp, tp_ok),
+                                 ("dp_mesh", dpm, dpm_ok),
+                                 ("nccl_world1", nccl, nccl_ok),
+                                 ("ring", ring, ring_ok)):
+        emit({"phase": name, "card": card, **summary_, "ok": good})
+        if not good:
+            failed.append(name)
+    emit({"phase": "parallel_seconds", "seconds": parallel_s})
+
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
     for r, t, u, d, g, pp, c, f in zip(rows, fwd_rows, s_fwd_rows, d_rows,
@@ -2393,6 +3101,11 @@ def main() -> int:
     row["growth_shape"] = {k: g_row[k] for k in shape_keys}
     row["pipeline_shape"] = {k: p_row[k] for k in shape_keys}
     row["fit_single_view_shape"] = {k: f_row[k] for k in shape_keys}
+    # the strips of phase 26 at tile 16: 512 of the 1,024 positions
+    rows[2]["strip_shape"] = strip_entries["k1_render"]
+    rows[2]["train_strip_shape"] = strip_entries["k1_train"]
+    row["strip_shape"] = strip_entries["k2_train"]
+    row["render_strip_shape"] = strip_entries["k2_render"]
     rows += [row, hg_row]
     # a kernel's launches are those of the main paths: render, train, the
     # schedule, the decoded orbit, the growth run, the CLI's pipeline and
@@ -2406,7 +3119,9 @@ def main() -> int:
              "growth": g_summary["launches"], "pipeline": pipe["launches"],
              "cold_start": cold["launches"], "device_loop": dl["launches"],
              "device_loop_growth": dlg["launches"], "dp": dp["launches"],
-             "fit_single_view": fit_launches}
+             "fit_single_view": fit_launches,
+             "tile_parallel": tp["launches"], "dp_mesh": dpm["launches"],
+             "nccl_world1": nccl["launches"]}
     for r in rows:
         for path, counts in paths.items():
             r[f"launches_{path}"] = counts[r["name"]]
@@ -2420,7 +3135,8 @@ def main() -> int:
             "block", "dynamic_smem_bytes", "static_smem_bytes", "registers",
             "spill_bytes", "train_shape", "schedule_shape", "decoded_shape",
             "growth_shape", "pipeline_shape", "cold_start_shape",
-            "fit_single_view_shape")
+            "fit_single_view_shape", "strip_shape", "train_strip_shape",
+            "render_strip_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:

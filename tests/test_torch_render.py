@@ -38,15 +38,16 @@ NARROW = dict(feat_dim=16, n_offsets=4, resolutions_3d=(18, 24, 33),
               max_splats_per_tile=256)
 
 
-def jax_model(pts, rng, cfg):
+def jax_model(pts, rng, cfg, capacity=None):
     """A JAX-package ``Model`` whose parameters are drawn with numpy:
-    anchors from the JAX package's init_from_points, features and offsets
-    at a trained scale (both are zero at init), heads with torch's default
-    Linear bounds, hash tables uniform in +-1e-4."""
+    anchors from the JAX package's init_from_points (at ``capacity``, by
+    default its bucket), features and offsets at a trained scale (both are
+    zero at init), heads with torch's default Linear bounds, hash tables
+    uniform in +-1e-4."""
     from bloomscene_tpu.models.model import Model, mix_spec
     state, _ = jax_anchors.init_from_points(
         pts, n_offsets=cfg.n_offsets, feat_dim=cfg.feat_dim,
-        voxel_size=cfg.voxel_size)
+        voxel_size=cfg.voxel_size, capacity=capacity)
     C, F, K = state.capacity, cfg.feat_dim, cfg.n_offsets
     state = state._replace(
         feat=jnp.asarray(rng.normal(0, 1, (C, F)).astype(np.float32)),

@@ -58,7 +58,8 @@ def scene(rng, n, stack_center=False):
 def assert_bins_equal(jb, tb):
     for f in tb._fields:
         got = getattr(tb, f)
-        if got is None:
+        if got is None or f == 'tile_shards':
+            # tile_shards: the port's record of the strips the blend took
             continue
         np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(jb, f)),
                                       err_msg=f)
