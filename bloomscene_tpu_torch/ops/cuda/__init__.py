@@ -4,17 +4,37 @@ with their plain PyTorch versions, the counterparts of the JAX package's
 launches its kernel (or raises) for CUDA tensors."""
 
 
+def _wrappers() -> dict:
+    from .blend import blend_backward, blend_forward
+    from .expand import expand_slab
+    from .hashgrid_bwd import grid_scatter
+    from .pairs import expand_pairs
+    return {"pair_expansion": expand_pairs, "slab_expansion": expand_slab,
+            "blend_forward": blend_forward, "blend_backward": blend_backward,
+            "hashgrid_bwd": grid_scatter}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's ``launches`` count to 0."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
 def launch_counts() -> dict:
     """Each kernel wrapper's ``launches`` count, by the kernel's name. A
     wrapper counts the Python calls that launch its kernel, so a step
     captured in a CUDA graph counts once at its capture and not at its
     replays."""
-    from .blend import blend_backward, blend_forward
-    from .expand import expand_slab
-    from .hashgrid_bwd import grid_scatter
-    from .pairs import expand_pairs
-    return {"pair_expansion": expand_pairs.launches,
-            "slab_expansion": expand_slab.launches,
-            "blend_forward": blend_forward.launches,
-            "blend_backward": blend_backward.launches,
-            "hashgrid_bwd": grid_scatter.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def loop_launches(counts: dict, graph_log: list) -> dict:
+    """Each kernel's launches in a run of the device loop, every replay of
+    a graph counted: ``counts`` (``launch_counts`` after the run) holds
+    each capture's launches once, and the eager steps' and the renders';
+    a captured launch runs once a replay (``Trainer.graph_log``)."""
+    out = dict(counts)
+    for g in graph_log:
+        for name, n in g["launches"].items():
+            out[name] += n * (g["replays"] - 1)
+    return out

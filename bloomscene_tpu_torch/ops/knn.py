@@ -78,8 +78,16 @@ def knn_mean_sq_dist(points: torch.Tensor, k: int = 3,
         bad = dup | (c >= n)
         diff = points[torch.clamp(c, max=n - 1)] - points[lo:hi, None, :]
         d2 = torch.where(bad, torch.inf, torch.sum(diff * diff, -1))
-        outs.append(torch.mean(-torch.topk(-d2, k, dim=1).values, -1))
+        outs.append(_mean_of(-torch.topk(-d2, k, dim=1).values))
     return torch.cat(outs)
+
+
+def _mean_of(d2: torch.Tensor) -> torch.Tensor:
+    """The mean over the last axis as XLA computes ``jnp.mean`` under jit:
+    the sum times the float32 reciprocal of the count (a divide by the
+    count rounds otherwise in the last bit)."""
+    n = d2.shape[-1]
+    return d2.sum(-1) * (float(np.float32(1.0 / n)) if n else float('nan'))
 
 
 def _knn_exact(points: torch.Tensor, k: int = 3) -> torch.Tensor:
@@ -87,4 +95,4 @@ def _knn_exact(points: torch.Tensor, k: int = 3) -> torch.Tensor:
     d2 = torch.sum((points[:, None, :] - points[None, :, :]) ** 2, -1)
     d2 = d2 + torch.where(torch.eye(n, dtype=torch.bool,
                                     device=points.device), torch.inf, 0.0)
-    return torch.mean(-torch.topk(-d2, min(k, n - 1), dim=1).values, -1)
+    return _mean_of(-torch.topk(-d2, min(k, n - 1), dim=1).values)

@@ -22,8 +22,10 @@ snugly, then every frame renders with them. ``mode='eval'`` renders a
 trained scene (the hash-grid context quantizes its attributes),
 ``mode='decoded'`` the scene that ``codec.decode_scene`` returns.
 
-Not ported: ``GSConfig.device_loop`` (JAX's ``make_train_scan``; CUDA
-graphs over the step on the card) raises ``NotImplementedError``.
+``training`` passes ``GSConfig.device_loop`` and ``device_loop_chunk``
+to ``Trainer.run``: with ``device_loop=True`` the steps run in chunks,
+each replaying a CUDA graph of the step on the card (JAX's
+``make_train_scan``).
 """
 from __future__ import annotations
 

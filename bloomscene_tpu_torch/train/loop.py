@@ -515,9 +515,10 @@ class StepGraph:
         self.record['replays'] += n
 
     def settle(self) -> None:
-        """Add the ms of the replays recorded so far to ``replay_ms``; the
-        caller has waited for them."""
+        """Add the ms of the replays recorded so far to ``replay_ms``
+        (waiting for the last of them, which the caller usually has)."""
         for start, end in self._events:
+            end.synchronize()
             self.record['replay_ms'] += start.elapsed_time(end)
         self._events.clear()
 
@@ -546,6 +547,44 @@ def capture_train_step(step_fn, generator: torch.Generator, phase: int,
     capture_s = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     return StepGraph(graph, phase, track_stats, step, capture_s, launches)
+
+
+class ChunkTimer:
+    """What a report of the device loop reads about one chunk (``record``):
+    its first and last step, phase, track_stats and capacity, the graphs
+    captured in it, its eager steps, whether a surgery ended it, its ms
+    with that surgery (CUDA events on the current stream on the card; the
+    host's clock on the CPU), and on the card the peak memory allocated in
+    it (``torch.cuda``'s peak statistic, reset when the chunk starts)."""
+
+    def __init__(self, device: torch.device, graphs_before: int, **record):
+        self.record = dict(record, captures=0, eager_steps=0, surgery=False,
+                           ms=None, peak_mem_bytes=None)
+        self._graphs_before = graphs_before
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+            self._events = [torch.cuda.Event(enable_timing=True)
+                            for _ in range(2)]
+            self._events[0].record()
+        self._device = device
+        self._t0 = time.perf_counter()
+
+    def stop(self, graphs_after: int, eager_steps: int,
+             surgery: bool) -> None:
+        self.record.update(captures=graphs_after - self._graphs_before,
+                           eager_steps=eager_steps, surgery=surgery)
+        if self._cuda:
+            self._events[1].record()
+            self.record['peak_mem_bytes'] = torch.cuda.max_memory_allocated(
+                self._device)
+        else:
+            self.record['ms'] = 1e3 * (time.perf_counter() - self._t0)
+
+    def settle(self) -> None:
+        if self._cuda:
+            self._events[1].synchronize()
+            self.record['ms'] = self._events[0].elapsed_time(self._events[1])
 
 
 class Trainer:
@@ -622,6 +661,10 @@ class Trainer:
         self._stream = None
         self._replayed: list = []      # graphs replayed since the last wait
         self.graph_log: list[dict] = []
+        # one record per device-loop chunk (ChunkTimer.record), in order,
+        # and the chunks whose ms are not read yet
+        self.chunk_log: list[dict] = []
+        self._timed_chunks: list = []
 
     # --- the trainer checkpoint ---
     def save(self, path: str) -> None:
@@ -730,7 +773,9 @@ class Trainer:
         the trainer at the chunk's last step (a checkpoint written from the
         callback holds that step). A capture or replay that fails raises;
         nothing falls back to the host loop. All views must share one
-        image shape."""
+        image shape. Each chunk appends its record to ``chunk_log``
+        (``ChunkTimer``; on the card it resets ``torch.cuda``'s peak memory
+        statistic when it starts), each capture its own to ``graph_log``."""
         cfg = self.cfg
         iterations = iterations or cfg.iterations
         if self.dp_batch:
@@ -822,20 +867,26 @@ class Trainer:
                     bounds=update_anchor_bounds(self.model.state))
             track = cfg.start_stat < it < cfg.update_until
             e = self._chunk_end(it, iterations, max_chunk)
-            self._run_chunk(buf, phase, track, e - it + 1, len(cameras))
+            timer = ChunkTimer(self.bg.device, first=it, last=e, phase=phase,
+                               track_stats=track,
+                               capacity=self.model.state.capacity,
+                               graphs_before=len(self.graph_log))
+            eager = self._run_chunk(buf, phase, track, e - it + 1,
+                                    len(cameras))
             self.step = e
             info = None
             if self._densify_due(e):
                 self.model, self.stats, info = densify.adjust_anchor(
                     self.model, self.stats, self.optimizer, cfg,
                     self.voxel_size, self.densify_rng)
+            timer.stop(len(self.graph_log), eager, surgery=info is not None)
+            self.chunk_log.append(timer.record)
+            self._timed_chunks.append(timer)
             log_its = [s for s in range(it, e + 1)
                        if s % log_every == 0 or s == iterations]
             if log_its:
                 rows = buf.metrics.cpu().numpy()
-                for graph in self._replayed:
-                    graph.settle()
-                self._replayed.clear()
+                self._settle()
                 for s in log_its:
                     self._emit_record(
                         s, dict(zip(StepMetrics._fields, rows[s - it])),
@@ -844,7 +895,7 @@ class Trainer:
         return self.model
 
     def _run_chunk(self, buf: LoopBuffers, phase: int, track: bool, n: int,
-                   n_cams: int) -> None:
+                   n_cams: int) -> int:
         """n steps of one phase and track_stats: the camera draws (one
         ``integers`` call a step, as the host loop's) and Adam's scalars
         copied into ``buf`` once, the counter reset, then the steps. On
@@ -863,16 +914,22 @@ class Trainer:
         if dev.type != "cuda":
             for _ in range(n):
                 step_fn()
+            eager = n
         else:
-            self._replay_chunk(step_fn, buf, phase, track, n)
+            eager = self._replay_chunk(step_fn, buf, phase, track, n)
         self.optimizer.count += n
+        return eager
 
-    def _replay_chunk(self, step_fn, buf, phase, track, n) -> None:
+    def _replay_chunk(self, step_fn, buf, phase, track, n) -> int:
+        """The chunk's steps on the card -> how many ran eagerly."""
         dev = self.bg.device
         key = self._storage_key(buf)
         if key != self._graph_key:
             # the host replaced a tensor that a graph reads (the bounds
-            # refresh, adjust_anchor, restore, a new run's views)
+            # refresh, adjust_anchor, restore, a new run's views): drop
+            # every graph, so that their memory pools go with them (the
+            # copies into ``buf`` above waited for their replays)
+            self._settle()
             self._graphs.clear()
             self._graph_key = key
         if self._stream is None:
@@ -896,6 +953,17 @@ class Trainer:
                 graph.replay(n - done)
                 self._replayed.append(graph)
         main.wait_stream(self._stream)
+        return done
+
+    def _settle(self) -> None:
+        """Read the ms of the replays and chunks run since the last call
+        into their records, and let go of the graphs replayed."""
+        for graph in self._replayed:
+            graph.settle()
+        self._replayed.clear()
+        for timer in self._timed_chunks:
+            timer.settle()
+        self._timed_chunks.clear()
 
     def _leaves(self) -> list:
         """The model's tensors: the state's leaves, the heads' parameters,

@@ -56,7 +56,16 @@ nonzero:
    plain path on the CPU with the same ``DecodeNoise``: the gradient of
    every trained leaf (anchor leaves, six heads, four hash tables) within
    P2_GRAD_TOL of the leaf's largest on the CPU (the sums run in other
-   orders), and bitwise equal between the steps on the card.
+   orders), and bitwise equal between the steps on the card. Where a leaf
+   passes the tolerance, ``grad_gate`` finds the anchor rows that carry
+   the excess and compares the two sides' forward decisions (the visible
+   set, the child opacity mask, the projection's validity, K3's pair
+   cull): at most MAX_BOUNDARY_ROWS rows whose differing decisions all
+   have their inputs within BOUNDARY_ULPS of their thresholds on both
+   sides, and that hold every row with an excess, may be left out; the
+   step is run again on both sides with those rows dead and every leaf
+   must then pass P2_GRAD_TOL. Each row left out is reported with its
+   margin.
 10. schedule: a fresh ``Trainer`` on the perturbed untrained model at
    ``GSConfig(**SCHEDULE)``: 40 steps through phase 0 (1-10), phase 1
    (11-20), the bounds refresh (20) and phase 2 (21-40), with
@@ -211,21 +220,36 @@ each path and read just after, in each rank.
    on the card within that test's tolerances (the scene's minimum final
    T above 2e-4, its precondition), every rank the same; the wall ms of
    the ring's forward and of forward and backward.
+31. fullscale_short: ``run_fullscale.run`` (the path of ``python -m
+   bloomscene_tpu_torch.run_fullscale``) at FULLSCALE_ARGS (128x128, 60
+   steps, 8 orbit frames) with FULLSCALE_CUT (phase 10's step numbers cut
+   to cross phases 0-2 and two surgeries in the device loop; 32,768 slots
+   a tile), a training record every step, into
+   outputs/chip_smoke/fullscale_short, with every counter set to 0 just
+   before and read just after: every step finite and no splat dropped (the
+   steps, the decoded orbit's and the training views' frames), the re-encode
+   byte-exact, every output file there, no chunk's peak memory above the
+   first of its kind in its phase by more than 2%, each capture holding
+   the step's kernels, K2 once a step, K1, K3 and K4 twice a step and once
+   a rendered frame, hashgrid_bwd four times a phase-2 step. Then K3, K4,
+   K1 and K2 on its last step's inputs, as phase 20.
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
 K4 at the render's shapes with their training, post-schedule, decoded,
 grown, pipeline and cold-start shapes under ``train_shape``,
 ``schedule_shape``, ``decoded_shape``, ``growth_shape``, ``pipeline_shape``
-and ``cold_start_shape``, K2 at the training shape with its schedule,
-growth and pipeline shapes, hashgrid_bwd at a phase-2 step's; K1's
+and ``cold_start_shape`` (and fit_single_view's and phase 31's under
+``fit_single_view_shape`` and ``fullscale_short_shape``), K2 at the
+training shape with its schedule, growth, pipeline, fit_single_view and
+fullscale_short shapes, hashgrid_bwd at a phase-2 step's; K1's
 and K2's strips of phase 26 at tile 16 under ``strip_shape``,
 ``train_strip_shape`` and ``render_strip_shape``; launches of the
 render, train, schedule, decoded orbit and growth paths, the pipeline,
 the cold start, the device loop and its growth run (graph replays
-counted), the batched trainer, fit_single_view, and phases 27, 28 and 29
-(summed over the ranks); the ptxas report of each:
-registers, static shared memory, spill bytes; for K1 and K2 also the
-block shape and dynamic shared memory), the one before it
+counted), the batched trainer, fit_single_view, phases 27, 28 and 29
+(summed over the ranks) and phase 31 (graph replays counted); the ptxas
+report of each: registers, static shared memory, spill bytes; for K1 and
+K2 also the block shape and dynamic shared memory), the one before it
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 before
 printing anything on stdout.
@@ -234,6 +258,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -273,6 +298,10 @@ SCHEDULE = dict(voxel_size=0.03, use_dpr=True, start_stat=0, iterations=40,
                 update_interval=10, update_until=40)
 P2_PAIR_CAPACITY = 1 << 21     # no pair overflow at 128x128
 P2_GRAD_TOL = 1e-3             # of each leaf's largest gradient
+# rows the gradient gate may leave out, each at a decision boundary: its
+# differing decisions' inputs within BOUNDARY_ULPS of their thresholds
+BOUNDARY_ULPS = 8
+MAX_BOUNDARY_ROWS = 2
 DETERMINISM_RUNS = 3           # identical phase-2 steps on the card
 HASHGRID_RTOL = 1e-6           # of each cell's summed magnitudes
 # tests/test_tile_rasterizer.py:87-90 (values) and :125-126 (gradients)
@@ -339,6 +368,21 @@ MESH_SCHEDULE = dict(voxel_size=0.03, use_dpr=True, start_stat=0,
 MESH_LOSS_TOL = dict(rtol=5e-4, atol=1e-5)
 MESH_PSNR_RTOL = 5e-3
 NCCL_STEPS = 3                 # phase 29
+# phase 31: run_fullscale.run at 128x128 for 60 steps (phase 20's size and
+# slots a tile), GSConfig's step numbers cut as phase 10's so that the
+# device loop crosses phase 1 (21-40), the bounds refresh (40) and phase 2
+# (41-60) with adjust_anchor at steps 20 and 40; 8 orbit frames, a
+# training record every step (every step's overflow counters)
+FULLSCALE_ARGS = ("--resolution", "128", "--iterations", "60",
+                  "--voxel_size", "0.03", "--render_frames", "8",
+                  "--device", "cuda")
+FULLSCALE_CUT = dict(noise_from_step=20, context_from_step=40, start_stat=0,
+                     update_from=10, update_interval=20, update_until=50,
+                     max_splats_per_tile=32768)
+FULLSCALE_FILES = ("traindata.npz", "point_cloud.ply", "gsplat.ply",
+                   "checkpoint.npz", "bitstreams/meta.json",
+                   "bitstreams_reenc/meta.json", "codec_sizes.json",
+                   "train_log.json", "metrics.json", "record.json")
 # phase 30: the ring's scene and tests/test_ring.py's tolerances
 RING_SPLATS, RING_SIZE = 4096, 128
 RING_TOL = {"color": (1e-5, 1e-5), "depth": (1e-4, 1e-4)}
@@ -992,12 +1036,222 @@ def train_kernel_checks(trainer, cfg, views, phase: int = 0):
     return row, k2_ok, fwd_rows, fwd_ok
 
 
+def leaf_errors(names, card: list, cpu: list) -> dict:
+    """Each leaf's largest gradient difference, card against CPU, beside
+    its largest CPU gradient and their ratio."""
+    out = {}
+    for name, a, b in zip(names, card, cpu):
+        scale = float(b.abs().max())
+        err = max_abs(a, b)
+        out[name] = {"max_abs_err": err, "max_abs": scale,
+                     "err_over_max": err / scale if scale > 0 else err,
+                     "finite": bool(torch.isfinite(a).all())}
+    return out
+
+
+def excess_rows(names, card: list, cpu: list, leaves: dict,
+                capacity: int) -> list:
+    """The anchor rows that carry a failing per-anchor leaf's excess: the
+    rows where the difference passes P2_GRAD_TOL of the leaf's largest."""
+    rows = set()
+    for name, a, b in zip(names, card, cpu):
+        if (leaves[name]["err_over_max"] <= P2_GRAD_TOL
+                or not name.startswith("state.") or a.shape[0] != capacity):
+            continue
+        lim = P2_GRAD_TOL * leaves[name]["max_abs"]
+        diff = (a.cpu() - b).abs().reshape(a.shape[0], -1).amax(1)
+        rows.update(int(r) for r in torch.nonzero(diff > lim).flatten())
+    return sorted(rows)
+
+
+def ulps(value, threshold, scale=None) -> float:
+    """How far ``value`` lies from ``threshold``, in float32 ulps at
+    ``scale`` (by default the larger of the two magnitudes)."""
+    s = max(abs(float(value)), abs(float(threshold))) if scale is None \
+        else abs(float(scale))
+    return abs(float(value) - float(threshold)) / float(
+        np.spacing(np.float32(max(s, np.finfo(np.float32).tiny))))
+
+
+def cull_input(dec: dict, child: int, tile_id: int):
+    """K3's exact-zero cull of one (child, tile) pair as the plain pair
+    chain computes it (``ops/cuda/pairs.py::expand_pairs_plain``) ->
+    (the smallest exponent over the tile, its threshold, the magnitude of
+    the terms they are made of): the pair stays where the first is at most
+    the second."""
+    from bloomscene_tpu_torch.ops.cuda.pairs import CULL_MARGIN
+    t = float(dec["tile"])
+    gx = -(-dec["width"] // dec["tile"])
+    f32 = torch.float32
+    mx, my = dec["mean2d"][child].to(f32)
+    ca, cb, cc = dec["conic"][child].to(f32)
+    ln_t = torch.log(torch.clamp(255.0 * dec["opac_eff"][child].to(f32),
+                                 min=1e-12))
+    lox = torch.tensor(float(tile_id % gx) * t, dtype=f32) - mx
+    hix = lox + (t - 1.0)
+    loy = torch.tensor(float(tile_id // gx) * t, dtype=f32) - my
+    hiy = loy + (t - 1.0)
+
+    def qq(dx, dy):
+        return 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+
+    def clip(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    qmin = min(float(qq(lox, clip(-cb * lox / cc, loy, hiy))),
+               float(qq(hix, clip(-cb * hix / cc, loy, hiy))),
+               float(qq(clip(-cb * loy / ca, lox, hix), loy)),
+               float(qq(clip(-cb * hiy / ca, lox, hix), hiy)))
+    if lox <= 0 and hix >= 0 and loy <= 0 and hiy >= 0:
+        qmin = 0.0
+    return qmin, float(ln_t + CULL_MARGIN), max(abs(qmin), abs(float(ln_t)),
+                                                CULL_MARGIN)
+
+
+def decision_flips(card: dict, cpu: dict) -> dict:
+    """The anchor rows on which the card and the CPU took another forward
+    decision, each with the decisions that differ and its margin: the
+    largest, over those decisions and the two sides, of the decision's
+    input's distance to its threshold in float32 ulps (inf where the gate
+    cannot show it). A decision counts where it changes what the blend
+    sees, and is charged to the first that explains it: the visible set
+    (its margin shown for the near plane only), then a child's opacity
+    mask (``opacity > 0``, in ulps of the opacity head's last product's
+    magnitude) or another cause of its decode validity (no margin), then
+    its projection's validity (no margin), then, for a child valid on both
+    sides, K3's pair cull (each (child, tile) kept on one side only,
+    recomputed from each side's inputs)."""
+    C = card["visible"].shape[0]
+    K = card["opacity"].shape[0] // C
+    flips: dict = {}
+
+    def flip(row, what, margin):
+        f = flips.setdefault(int(row), {"decisions": [], "margin_ulps": 0.0})
+        f["decisions"].append(what)
+        f["margin_ulps"] = max(f["margin_ulps"], margin)
+
+    near = card["near"]
+    vis_flip = card["visible"] != cpu["visible"]
+    for r in torch.nonzero(vis_flip).flatten().tolist():
+        d = (float(card["anchor_depth"][r]), float(cpu["anchor_depth"][r]))
+        at_near = (d[0] > near) != (d[1] > near)
+        flip(r, {"decision": "visible", "depth": list(d)},
+             max(ulps(x, near) for x in d) if at_near else float("inf"))
+    child_vis_flip = vis_flip.repeat_interleave(K)
+    dec_flip = (card["dec_valid"] != cpu["dec_valid"]) & ~child_vis_flip
+    op_flip = (card["opacity"] > 0) != (cpu["opacity"] > 0)
+    for c in torch.nonzero(dec_flip).flatten().tolist():
+        if not op_flip[c]:
+            flip(c // K, {"decision": "decode_valid", "child": c},
+                 float("inf"))
+            continue
+        x = (float(card["opacity"][c]), float(cpu["opacity"][c]))
+        sc = (float(card["opacity_scale"][c]), float(cpu["opacity_scale"][c]))
+        flip(c // K, {"decision": "opacity_mask", "child": c,
+                      "opacity": list(x), "scale": list(sc)},
+             max(ulps(v, 0.0, m) for v, m in zip(x, sc)))
+    valid_a, valid_b = card["child_valid"], cpu["child_valid"]
+    proj_flip = (valid_a != valid_b) & ~dec_flip & ~child_vis_flip
+    for c in torch.nonzero(proj_flip).flatten().tolist():
+        flip(c // K, {"decision": "projection", "child": c}, float("inf"))
+    both = valid_a & valid_b
+    kept_a = {tuple(p) for p in card["pairs"].tolist() if both[p[0]]}
+    kept_b = {tuple(p) for p in cpu["pairs"].tolist() if both[p[0]]}
+    for child, tile_id in sorted(kept_a ^ kept_b):
+        inputs = [cull_input(dec, child, tile_id) for dec in (card, cpu)]
+        flip(child // K, {"decision": "pair_cull", "child": child,
+                          "tile": tile_id,
+                          "kept_on": "card" if (child, tile_id) in kept_a
+                          else "cpu", "qmin_and_threshold": inputs},
+             max(ulps(q, t, m) for q, t, m in inputs))
+    return flips
+
+
+def grad_gate(names, card: list, cpu: list, dec_card: dict, dec_cpu: dict,
+              rerun) -> tuple[dict, bool]:
+    """The card-vs-CPU gradient gate: every leaf within P2_GRAD_TOL of its
+    largest CPU gradient. Where a leaf passes it, the rows that carry the
+    excess are found and the two sides' forward decisions compared; rows
+    that sit at a decision boundary (every decision that differs there has
+    its input within BOUNDARY_ULPS of its threshold, on both sides) may be
+    left out, at most MAX_BOUNDARY_ROWS of them and only if they hold every
+    row with an excess. ``rerun(rows)`` then gives both sides' gradients
+    with those rows dead, and every leaf must pass the tolerance there.
+    -> (the report, ok); the report names each row left out with its
+    margin and decisions."""
+    leaves = leaf_errors(names, card, cpu)
+    finite = all(v["finite"] for v in leaves.values())
+    report = {"leaves": leaves, "excused_rows": []}
+    if all(v["err_over_max"] <= P2_GRAD_TOL for v in leaves.values()):
+        return report, finite
+    capacity = dec_card["visible"].shape[0]
+    rows = excess_rows(names, card, cpu, leaves, capacity)
+    flips = decision_flips(dec_card, dec_cpu)
+    boundary = sorted(r for r, f in flips.items()
+                      if f["margin_ulps"] <= BOUNDARY_ULPS)
+    report.update(
+        excess_rows=rows[:20], n_excess_rows=len(rows),
+        flipped_rows={str(r): flips[r] for r in sorted(flips)[:20]},
+        n_flipped_rows=len(flips), boundary_rows=boundary)
+    if (not boundary or len(boundary) > MAX_BOUNDARY_ROWS
+            or not set(rows) <= set(boundary)):
+        return report, False
+    card2, cpu2 = rerun(boundary)
+    report["excused_rows"] = [{"row": r, **flips[r]} for r in boundary]
+    report["leaves_without_excused_rows"] = again = leaf_errors(
+        names, card2, cpu2)
+    return report, finite and all(
+        v["finite"] and v["err_over_max"] <= P2_GRAD_TOL
+        for v in again.values())
+
+
+def opacity_scale_hook(heads, out: list):
+    """Hook the opacity head's last product: ``out`` receives the
+    magnitude its rounding scales with, |h| |W|^T + |b| a child, once a
+    forward."""
+    lin = heads.opacity[-1]
+
+    def hook(module, inputs, _):
+        with torch.no_grad():
+            out.append((inputs[0].detach().abs() @ lin.weight.detach().abs().T
+                        + lin.bias.detach().abs()).reshape(-1))
+    return lin.register_forward_hook(hook)
+
+
+def step_decisions(model, cam, res, visible, scale) -> dict:
+    """One step's forward decisions and their inputs, on the CPU."""
+    from bloomscene_tpu_torch.models.anchors import get_scaling
+    from bloomscene_tpu_torch.models.render import _project
+    st = model.state
+    intr = cam.intrinsics
+    with torch.no_grad():
+        anchors = _project(st.anchor, get_scaling(st)[:, :3], st.rotation,
+                           intr, cam.device_arrays(st.device))
+    b = res.bins
+    n = int(b.num_packed)
+    return {
+        "visible": visible.cpu(), "anchor_depth": anchors.depth.cpu(),
+        "near": 0.2,
+        "opacity": res.dec.neural_opacity.detach().cpu(),
+        "opacity_scale": scale.cpu(),
+        "dec_valid": res.dec.valid.cpu(),
+        "child_valid": res.proj.valid.cpu(),
+        "mean2d": res.proj.mean2d.detach().cpu(),
+        "conic": res.proj.conic.detach().cpu(),
+        "opac_eff": torch.where(res.proj.valid, res.dec.opacity,
+                                0.0).detach().cpu(),
+        "pairs": torch.stack([b.gauss_sorted[:n], b.tile_sorted[:n]],
+                             1).long().cpu(),
+        "width": intr.width, "tile": 16}
+
+
 def phase2_grad_reference(model, size: int, repo: str):
     """One phase-2 step at ``size`` x ``size`` on copies of ``model``: the
     gradient of every trained leaf (the anchor leaves, the six heads, the
     four hash tables) on the card against the plain path on the CPU, from
-    the same view, seeded targets and ``DecodeNoise``. Each leaf within
-    P2_GRAD_TOL of its largest CPU gradient."""
+    the same view, seeded targets and ``DecodeNoise``, held by
+    ``grad_gate``; and bitwise equal between DETERMINISM_RUNS identical
+    steps on the card."""
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.convert import model_to
     from bloomscene_tpu_torch.models.decode import DecodeNoise, draw_noise
@@ -1011,32 +1265,49 @@ def phase2_grad_reference(model, size: int, repo: str):
     tgt_d = rng.uniform(1, 4, (size, size)).astype(np.float32)
     noise = draw_noise(model.state.capacity, cfg, 2,
                        torch.Generator().manual_seed(SEED + 4), "cpu")
-    out = {}
-    repeats = [f"card_{i}" for i in range(2, DETERMINISM_RUNS + 1)]
-    for side, dev in (("card", model.state.device),
-                      *((r, model.state.device) for r in repeats),
-                      ("cpu", torch.device("cpu"))):
+
+    def side(dev, dead=()):
         m = make_trainable(model_to(model, dev))
-        names = [n for n, _, _ in param_groups(m)]
+        if dead:
+            m.state.alive[list(dead)] = False
+        scale: list = []
+        hook = opacity_scale_hook(m.heads, scale)
         t0 = time.perf_counter()
-        _, loss, _, res, grads, _ = step_gradients(
-            cfg, cam.intrinsics, torch.zeros(3, device=dev), m,
-            [p for _, _, p in param_groups(m)], cam.device_arrays(dev),
-            torch.from_numpy(tgt_c).to(dev), torch.from_numpy(tgt_d).to(dev),
-            phase=2, noise=DecodeNoise(*(x.to(dev) for x in noise)))
-        out[side] = dict(loss=float(loss.detach()),
-                             bit_per_param=float(
-                                 res.rate.bit_per_param.detach()),
-                             num_pairs=int(res.bins.num_pairs),
-                             seconds=time.perf_counter() - t0,
-                             grads=[g.detach().cpu() for g in grads])
-    leaves, ok = {}, out["card"]["num_pairs"] == out["cpu"]["num_pairs"] > 0
-    for name, a, b in zip(names, out["card"]["grads"], out["cpu"]["grads"]):
-        scale = float(b.abs().max())
-        rel = max_abs(a, b) / scale if scale > 0 else max_abs(a, b)
-        leaves[name] = {"max_abs_err": max_abs(a, b), "max_abs": scale,
-                        "err_over_max": rel}
-        ok = ok and bool(torch.isfinite(a).all()) and rel <= P2_GRAD_TOL
+        try:
+            visible, loss, _, res, grads, _ = step_gradients(
+                cfg, cam.intrinsics, torch.zeros(3, device=dev), m,
+                [p for _, _, p in param_groups(m)], cam.device_arrays(dev),
+                torch.from_numpy(tgt_c).to(dev),
+                torch.from_numpy(tgt_d).to(dev), phase=2,
+                noise=DecodeNoise(*(x.to(dev) for x in noise)))
+        finally:
+            hook.remove()
+        return dict(loss=float(loss.detach()),
+                    bit_per_param=float(res.rate.bit_per_param.detach()),
+                    num_pairs=int(res.bins.num_pairs),
+                    seconds=time.perf_counter() - t0,
+                    grads=[g.detach().cpu() for g in grads],
+                    names=[n for n, _, _ in param_groups(m)],
+                    decisions=step_decisions(m, cam, res, visible,
+                                             scale[0]))
+
+    card_dev = model.state.device
+    out = {"card": side(card_dev)}
+    repeats = [f"card_{i}" for i in range(2, DETERMINISM_RUNS + 1)]
+    for r in repeats:
+        out[r] = side(card_dev)
+    out["cpu"] = side(torch.device("cpu"))
+    names = out["card"]["names"]
+
+    def rerun(rows):
+        a, b = side(card_dev, rows), side(torch.device("cpu"), rows)
+        return a["grads"], b["grads"]
+
+    gate, ok = grad_gate(names, out["card"]["grads"], out["cpu"]["grads"],
+                         out["card"]["decisions"], out["cpu"]["decisions"],
+                         rerun)
+    leaves = gate.pop("leaves")
+    ok = ok and out["card"]["num_pairs"] == out["cpu"]["num_pairs"] > 0
     for name in ("grid.xyz", "heads.grid.0.weight", "state.anchor"):
         ok = ok and leaves[name]["max_abs"] > 0     # the context is reached
     # identical steps on the card: every leaf's gradient bitwise equal
@@ -1048,7 +1319,7 @@ def phase2_grad_reference(model, size: int, repo: str):
     worst = max(leaves, key=lambda n: leaves[n]["err_over_max"])
     return dict(size=size, tolerance=P2_GRAD_TOL, **summary,
                 worst_leaf=worst, card_deterministic=deterministic,
-                leaves=leaves), ok
+                leaves=leaves, gate=gate), ok
 
 
 def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
@@ -1769,17 +2040,6 @@ def phase2_ab(trainer, views, counters: dict):
     return out, True
 
 
-def loop_launches(counts: dict, graph_log: list) -> dict:
-    """Each kernel's launches in a device-loop run. A wrapper counts its
-    Python calls, so ``counts`` holds the eager steps' launches and each
-    capture's once; a captured launch runs once a replay of its graph."""
-    out = dict(counts)
-    for g in graph_log:
-        for name, n in g["launches"].items():
-            out[name] += n * (g["replays"] - 1)
-    return out
-
-
 def record_differences(a: list, b: list) -> list[str]:
     """``iteration:key`` of every record entry that differs between two
     runs' records (the surgery's wall time aside)."""
@@ -1799,6 +2059,8 @@ def device_loop_run(trainer, views, iterations: int, counters: dict):
     chunk's seconds run from the previous chunk's records to its own (its
     surgery included, as a host-loop step's ms include it)."""
     import warnings
+
+    from bloomscene_tpu_torch.ops.cuda import loop_launches
     records, stamps = [], []
     timed = trainer.bg.device.type == "cuda"
 
@@ -1827,7 +2089,12 @@ def device_loop_run(trainer, views, iterations: int, counters: dict):
         t = stamps[it - first]
         chunks.append({"first": it, "last": e, "seconds": t - last})
         it, last = e + 1, t
-    peak = torch.cuda.max_memory_allocated() if timed else None
+    # the loop resets the peak statistic at each chunk: the run's peak is
+    # the largest of the chunks' and of what followed the last reset
+    peak = (max([torch.cuda.max_memory_allocated()]
+                + [c["peak_mem_bytes"] for c in trainer.chunk_log
+                   if c["peak_mem_bytes"] is not None])
+            if timed else None)
     return (records, chunks, loop_launches(counts, trainer.graph_log), wall,
             peak, caught)
 
@@ -2066,6 +2333,7 @@ def fit_phase(workdir: str, counters: dict):
     one training step of the host loop's trained trainer, at this path's
     own shapes (128 x 128, 2,048 slots a tile, the shell at voxel 0.08)."""
     from bloomscene_tpu_torch.examples import fit_single_view
+    from bloomscene_tpu_torch.ops.cuda import loop_launches
     from bloomscene_tpu_torch.train.loop import phase_of_step
     out, trained = {}, None
     for loop in (False, True):
@@ -2714,6 +2982,104 @@ def ring_summary(single: dict, ranks: list):
             "checks": checks}, all(checks.values())
 
 
+def fullscale_short_phase(workdir: str, counters: dict, card: str):
+    """``run_fullscale.run`` as ``python -m
+    bloomscene_tpu_torch.run_fullscale`` runs it, at FULLSCALE_ARGS with FULLSCALE_CUT's step numbers, into a
+    fresh ``workdir``, its printing sent to main.log there, with every
+    counter set to 0 just before and read just after (each graph's
+    launches counted once a replay): every step in the device loop through
+    phases 0-2 and both surgeries, every loss finite, no splat dropped by
+    any step or by the orbit's or the training views' frames, the re-encode
+    byte-exact, every output file there, no chunk's peak memory grown past
+    the first of its kind, every capture holding the step's kernels, and
+    the kernels launched as the steps and frames ask (the record's own
+    count the same)."""
+    from bloomscene_tpu_torch import run_fullscale
+    from bloomscene_tpu_torch.ops.cuda import loop_launches
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    args = run_fullscale.build_parser().parse_args([
+        *FULLSCALE_ARGS, "--save_dir", workdir,
+        "--out", os.path.join(workdir, "record.json")])
+    cfg = dataclasses.replace(run_fullscale.config(args), **FULLSCALE_CUT)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, "main.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        rec, bs = run_fullscale.run(args, cfg, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr = bs.trainer
+    launches = loop_launches({n: fn.launches for n, fn in counters.items()},
+                             tr.graph_log)
+    steps = args.iterations
+    losses = [r["loss"] for r in bs.logs]
+    orbit = bs.scene.preset_cameras["rotate360"]
+    evals = bs.scene.eval_cameras or bs.scene.train_cameras
+    overflow = {"training": overflow_summary(bs.logs),
+                "orbit": frame_overflow(bs.decoded_model, orbit, cfg,
+                                        "decoded")}
+    frames = (rec["video"]["n_frames"] + len(evals)
+              + rec["trainview_psnr_50view_mean"]["n_views"])
+    p2 = sum(c["last"] - c["first"] + 1 for c in tr.chunk_log
+             if c["phase"] == 2)
+
+    def there(f):
+        return os.path.exists(os.path.join(workdir, f))
+    missing = [f for f in FULLSCALE_FILES if not there(f)]
+    missing += [v for v in ("rotate360", "rotate360_depth")
+                if not (there(v + ".mp4") or there(v + "/0000.png"))]
+    missing += [f"eval_renders/{i:03d}.png" for i in range(len(evals))
+                if not there(f"eval_renders/{i:03d}.png")]
+    checks = {
+        "steps": tr.step == steps == len(losses),
+        "device_loop_phases": sorted({c["phase"] for c in tr.chunk_log})
+        == [0, 1, 2],
+        "surgeries": [c["last"] for c in tr.chunk_log if c["surgery"]]
+        == [20, 40],
+        "finite": all(np.isfinite(losses)),
+        "reencode_bit_exact": rec["reencode_bit_exact"] is True,
+        "no_splat_dropped": all(o["records_with_overflow"] == 0
+                                for o in overflow.values())
+        and rec["quality"]["trainview_frames_with_overflow"] == 0,
+        "files": not missing,
+        "memory_flat": not any(v["grows"]
+                               for v in rec["memory_growth"].values()),
+        "graphs_hold_the_step_kernels": graph_checks(tr.graph_log, 2),
+        "blend_backward_once_per_step": launches["blend_backward"] == steps,
+        "forward_kernels_per_forward_and_frame": all(
+            launches[k] == 2 * steps + frames for k in FORWARD_KERNELS),
+        "hashgrid_bwd_four_per_phase2_step":
+            launches["hashgrid_bwd"] == 4 * p2,
+        "record_launches": rec["launches"] == launches,
+    }
+    out = {
+        "card": card, "argv": list(FULLSCALE_ARGS),
+        "cut": FULLSCALE_CUT, "wall_s": wall,
+        "pcd_points": rec["pcd_points"],
+        "n_train_views": rec["n_train_views"],
+        "anchors": rec["final_anchors"],
+        "capacity": rec["anchor_capacity_bucket"],
+        "stages": {k: v["total_s"] for k, v in rec["stages"].items()},
+        "step_ms_by_phase": rec["step_ms_by_phase"],
+        "chunks": len(tr.chunk_log), "captures": len(tr.graph_log),
+        "capture_s": rec["graphs"]["capture_s"],
+        "eager_steps": rec["eager_steps"],
+        "peak_mem_bytes": [c["peak_mem_bytes"] for c in tr.chunk_log],
+        "memory_growth": rec["memory_growth"],
+        "codec_total_MB": rec["codec_total_MB"],
+        "reencode_check_s": rec["reencode_check_s"],
+        "quality": rec["quality"], "video": rec["video"],
+        "eval_fps": rec["eval_fps"],
+        "trainview_psnr": rec["trainview_psnr_50view_mean"]["mean_psnr"],
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "overflow": overflow, "launches": launches, "missing": missing,
+        "checks": checks}
+    return bs, out, all(checks.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3085,11 +3451,36 @@ def main() -> int:
             failed.append(name)
     emit({"phase": "parallel_seconds", "seconds": parallel_s})
 
+    # 31. run_fullscale's path, short: 128x128, 60 steps across phases
+    # 0-2 and two surgeries in the device loop, the codec's byte-exact
+    # re-encode, the decoded orbit, the eval views
+    t0 = time.perf_counter()
+    fs_bs, fs, fs_ok = fullscale_short_phase(
+        os.path.join(workdir, "fullscale_short"), counters, card)
+    emit({"phase": "fullscale_short", **fs, "ok": fs_ok})
+    if not fs_ok:
+        failed.append("fullscale_short")
+    # the kernels on the inputs of its last training step
+    fs_row, fs_k2_ok, fs_fwd_rows, fs_fwd_ok = train_kernel_checks(
+        fs_bs.trainer, fs_bs.cfg, fs_bs.train_views(),
+        phase=phase_of_step(fs_bs.trainer.step, fs_bs.cfg))
+    for r in fs_fwd_rows + [fs_row]:
+        emit({"phase": "kernel", "at": "fullscale_short_step", "card": card,
+              **r})
+    failed += [f"{name} (fullscale_short step)"
+               for name, good in fs_fwd_ok.items() if not good]
+    if not fs_k2_ok:
+        failed.append("blend_backward (fullscale_short step)")
+    del fs_bs
+    torch.cuda.empty_cache()
+    emit({"phase": "fullscale_short_seconds",
+          "seconds": time.perf_counter() - t0})
+
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
-    for r, t, u, d, g, pp, c, f in zip(rows, fwd_rows, s_fwd_rows, d_rows,
-                                       g_fwd_rows, p_fwd_rows, c_rows,
-                                       f_fwd_rows):
+    for r, t, u, d, g, pp, c, f, fs_r in zip(
+            rows, fwd_rows, s_fwd_rows, d_rows, g_fwd_rows, p_fwd_rows,
+            c_rows, f_fwd_rows, fs_fwd_rows):
         r["train_shape"] = {k: t[k] for k in shape_keys}
         r["schedule_shape"] = {k: u[k] for k in shape_keys}
         r["decoded_shape"] = {k: d[k] for k in shape_keys}
@@ -3097,10 +3488,12 @@ def main() -> int:
         r["pipeline_shape"] = {k: pp[k] for k in shape_keys}
         r["cold_start_shape"] = {k: c[k] for k in shape_keys}
         r["fit_single_view_shape"] = {k: f[k] for k in shape_keys}
+        r["fullscale_short_shape"] = {k: fs_r[k] for k in shape_keys}
     row["schedule_shape"] = {k: s_row[k] for k in shape_keys}
     row["growth_shape"] = {k: g_row[k] for k in shape_keys}
     row["pipeline_shape"] = {k: p_row[k] for k in shape_keys}
     row["fit_single_view_shape"] = {k: f_row[k] for k in shape_keys}
+    row["fullscale_short_shape"] = {k: fs_row[k] for k in shape_keys}
     # the strips of phase 26 at tile 16: 512 of the 1,024 positions
     rows[2]["strip_shape"] = strip_entries["k1_render"]
     rows[2]["train_strip_shape"] = strip_entries["k1_train"]
@@ -3121,7 +3514,8 @@ def main() -> int:
              "device_loop_growth": dlg["launches"], "dp": dp["launches"],
              "fit_single_view": fit_launches,
              "tile_parallel": tp["launches"], "dp_mesh": dpm["launches"],
-             "nccl_world1": nccl["launches"]}
+             "nccl_world1": nccl["launches"],
+             "fullscale_short": fs["launches"]}
     for r in rows:
         for path, counts in paths.items():
             r[f"launches_{path}"] = counts[r["name"]]
@@ -3135,8 +3529,8 @@ def main() -> int:
             "block", "dynamic_smem_bytes", "static_smem_bytes", "registers",
             "spill_bytes", "train_shape", "schedule_shape", "decoded_shape",
             "growth_shape", "pipeline_shape", "cold_start_shape",
-            "fit_single_view_shape", "strip_shape", "train_strip_shape",
-            "render_strip_shape")
+            "fit_single_view_shape", "fullscale_short_shape", "strip_shape",
+            "train_strip_shape", "render_strip_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:

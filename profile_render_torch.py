@@ -4,6 +4,7 @@ one card.
 
     python3 profile_render_torch.py [--frames 8] [--decoded]
     python3 profile_render_torch.py --train 10 [--phase 2]
+        [--visible_capacity N]
 
 Builds the scene of ``chip_smoke.py`` (~111K anchors, GSConfig defaults,
 512x512, the rotate360 orbit).
@@ -37,6 +38,9 @@ The backward runs on autograd's device thread, outside the
 time as the window's total less the other step spans. ``--phase 1`` or
 ``--phase 2`` moves the schedule's boundaries before step 1, so every
 step runs in that phase (no densification step is due).
+``--visible_capacity N`` trains with ``GSConfig.visible_capacity=N``: the
+decode compacted to a bucket of N anchor rows (the full-scale run's
+131072; the scene's capacity is 139,264).
 
 Prints one JSON object per measurement, the card's name and power limit
 first. Needs one CUDA card.
@@ -105,7 +109,8 @@ def span_table(prof, steps: int) -> dict:
     return spans
 
 
-def profile_train(steps: int, repo: str, phase: int = 0) -> int:
+def profile_train(steps: int, repo: str, phase: int = 0,
+                  visible_capacity: int | None = None) -> int:
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
     from bloomscene_tpu_torch.config import GSConfig
@@ -122,7 +127,8 @@ def profile_train(steps: int, repo: str, phase: int = 0) -> int:
     # every step in ``phase``: the phase boundaries moved before step 1
     bounds = {0: {}, 1: dict(noise_from_step=0),
               2: dict(noise_from_step=0, context_from_step=0)}[phase]
-    cfg_t = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0, **bounds)
+    cfg_t = GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0,
+                     visible_capacity=visible_capacity, **bounds)
     views = [(c.device_arrays("cuda"), torch.as_tensor(f, device="cuda"),
               torch.as_tensor(d, device="cuda"))
              for c, f, d in zip(cams, frames, depths)]
@@ -146,7 +152,9 @@ def profile_train(steps: int, repo: str, phase: int = 0) -> int:
     others = sum(spans.get(f"train.{k}", {}).get("device_busy_ms", 0.0)
                  for k in ("prefilter", "forward", "update", "stats"))
     print(json.dumps({
-        "steps": steps, "phase": phase, "step_ms_unprofiled": plain_ms,
+        "steps": steps, "phase": phase,
+        "visible_capacity": visible_capacity,
+        "step_ms_unprofiled": plain_ms,
         "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": device_ms,
         "backward_device_ms_per_step": device_ms - others,
@@ -164,6 +172,8 @@ def main() -> int:
                     help="profile STEPS training steps instead of frames")
     ap.add_argument("--phase", type=int, default=0, choices=(0, 1, 2),
                     help="the training phase of the profiled steps")
+    ap.add_argument("--visible_capacity", type=int, default=None,
+                    help="with --train: compact the decode to N rows")
     ap.add_argument("--decoded", action="store_true",
                     help="profile the decoded scene's frames")
     args = ap.parse_args()
@@ -173,7 +183,8 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     if args.train:
-        return profile_train(args.train, repo, args.phase)
+        return profile_train(args.train, repo, args.phase,
+                             args.visible_capacity)
     import chip_smoke as cs
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.models.decode import (attribute_means,

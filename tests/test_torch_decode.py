@@ -25,6 +25,7 @@ from bloomscene_tpu.models.decode import decode_neural_gaussians as jax_decode
 from bloomscene_tpu.ops import hashgrid as jh
 from bloomscene_tpu.ops import quantization as jq
 from bloomscene_tpu.ops.knn import _knn_exact as jax_knn_exact
+from bloomscene_tpu.ops.knn import knn_mean_sq_dist as jax_knn
 from bloomscene_tpu_torch.config import GSConfig
 from bloomscene_tpu_torch.convert import model_from_jax_params
 from bloomscene_tpu_torch.models import anchors as tanchors
@@ -146,6 +147,39 @@ def test_init_from_points_and_knn(models):
     np.testing.assert_allclose(knn_mean_sq_dist(torch.from_numpy(p)).numpy(),
                                np.asarray(jax_knn_exact(jnp.asarray(p))),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize('n', [300, 1500, 5000, 20000])
+def test_knn_bitwise_jax(n):
+    """Up to 2048 points the exact path, above it the Morton search: the
+    mean of the 3 squared distances is XLA's sum times float32(1/3), bit
+    for bit."""
+    p = np.random.default_rng(n).uniform(-1, 1, (n, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        knn_mean_sq_dist(torch.from_numpy(p)).numpy(),
+        np.asarray(jax_knn(jnp.asarray(p))))
+
+
+# seeded clouds on which a divide by 3 gave another median 3-NN distance,
+# so other anchors, than JAX's
+@pytest.mark.parametrize('seed', [102, 105, 108])
+def test_init_adaptive_voxel_bitwise_jax(seed):
+    """``voxel_size=0``: the median 3-NN distance as the voxel size, then
+    the anchors, bitwise JAX's; the offset scales within 1e-6."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1, 1, (int(rng.integers(300, 3000)), 3)).astype(
+        np.float32)
+    st, vs = tanchors.init_from_points(pts, n_offsets=4, feat_dim=8,
+                                       device=torch.device('cpu'),
+                                       voxel_size=0.0)
+    jst, jvs = jax_anchors.init_from_points(pts, n_offsets=4, feat_dim=8,
+                                            voxel_size=0.0)
+    assert vs == jvs and st.capacity == jst.capacity
+    np.testing.assert_array_equal(st.alive.numpy(), np.asarray(jst.alive))
+    np.testing.assert_array_equal(st.anchor.numpy(), np.asarray(jst.anchor))
+    np.testing.assert_allclose(st.scaling_log.numpy(),
+                               np.asarray(jst.scaling_log),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_knn_morton_path_near_exact(rng):
