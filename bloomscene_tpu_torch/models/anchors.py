@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.cuda.gather_rows_bwd import gather_rows_bwd
 from ..ops.knn import knn_mean_sq_dist
 from ..ops.quantization import quantize_anchor
 
@@ -148,11 +149,44 @@ class AnchorState:
     def gather_rows(self, idx: torch.Tensor, alive: torch.Tensor
                     ) -> "AnchorState":
         """Row-gather every per-anchor field by ``idx``; ``alive`` becomes
-        the gathered state's alive mask."""
+        the gathered state's alive mask. The leaves that require grad go
+        through ``SortedRowGather`` (so ``idx`` must be nondecreasing), the
+        frozen ones through plain indexing."""
         C = self.capacity
-        vals = {f: getattr(self, '_' + f).reshape(C, -1)[idx]
-                for f in self._fields if f != 'alive'}
+        leaves = {f: getattr(self, '_' + f) for f in self._fields
+                  if f != 'alive'}
+        trained = [f for f, x in leaves.items() if x.requires_grad]
+        vals = {f: x.reshape(C, -1)[idx] for f, x in leaves.items()
+                if f not in trained}
+        if trained:
+            rows = SortedRowGather.apply(idx, C, *(leaves[f]
+                                                   for f in trained))
+            vals.update(zip(trained, rows))
         return AnchorState(alive=alive, **vals)
+
+
+class SortedRowGather(torch.autograd.Function):
+    """``x.reshape(C, -1)[idx]`` of each leaf x, with the backward
+    ``gather_rows_bwd``: every leaf's rows summed by ``idx`` in one launch
+    of the kernel on CUDA tensors, ``index_add_`` on CPU tensors.
+
+    The precondition: ``idx`` is nondecreasing and in [0, C). Its only
+    caller is ``compact_visible`` (through ``AnchorState.gather_rows``),
+    whose index is the sorted visible rows, then C - 1 repeated for the
+    bucket's padding."""
+
+    @staticmethod
+    def forward(ctx, idx, C, *leaves):
+        ctx.save_for_backward(idx)
+        ctx.C, ctx.shapes = C, [x.shape for x in leaves]
+        return tuple(x.reshape(C, -1)[idx] for x in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        idx, = ctx.saved_tensors
+        sums = gather_rows_bwd([g.contiguous() for g in grads], idx, ctx.C)
+        return (None, None, *(s.reshape(shape)
+                              for s, shape in zip(sums, ctx.shapes)))
 
 
 class AnchorBounds(NamedTuple):

@@ -4,19 +4,22 @@ with their plain PyTorch versions, the counterparts of the JAX package's
 launches its kernel (or raises) for CUDA tensors."""
 
 
-def _wrappers() -> dict:
+def wrappers() -> dict:
+    """Each kernel's wrapper by the kernel's name; a wrapper counts its
+    launches in ``launches``."""
     from .blend import blend_backward, blend_forward
     from .expand import expand_slab
+    from .gather_rows_bwd import gather_rows_bwd
     from .hashgrid_bwd import grid_scatter
     from .pairs import expand_pairs
     return {"pair_expansion": expand_pairs, "slab_expansion": expand_slab,
             "blend_forward": blend_forward, "blend_backward": blend_backward,
-            "hashgrid_bwd": grid_scatter}
+            "hashgrid_bwd": grid_scatter, "gather_rows_bwd": gather_rows_bwd}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's ``launches`` count to 0."""
-    for fn in _wrappers().values():
+    for fn in wrappers().values():
         fn.launches = 0
 
 
@@ -25,7 +28,7 @@ def launch_counts() -> dict:
     wrapper counts the Python calls that launch its kernel, so a step
     captured in a CUDA graph counts once at its capture and not at its
     replays."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def loop_launches(counts: dict, graph_log: list) -> dict:

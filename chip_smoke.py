@@ -233,6 +233,33 @@ each path and read just after, in each rank.
    the step's kernels, K2 once a step, K1, K3 and K4 twice a step and once
    a rendered frame, hashgrid_bwd four times a phase-2 step. Then K3, K4,
    K1 and K2 on its last step's inputs, as phase 20.
+32. compacted_step: the compacted decode at run_fullscale's
+   ``--visible_capacity`` (COMPACT_CAPACITY of phase 2's 139,264 rows,
+   the bucket padded with row C - 1) on the perturbed start of phase 7:
+   ``Trainer.run`` at COMPACT_LOOP (phase 0, the bounds refresh, phase 2)
+   with the host loop and with the device loop, every counter set to 0
+   just before each and read just after: bitwise equal, records included,
+   gather_rows_bwd once a step (once in each captured step) and every
+   kernel launched as often in both. Then one phase-0 and one phase-2 step
+   (``step_gradients``) compacted and dense from the same start with the
+   same draws per anchor, at COMPACT_SAME_FN: every alive row's gradient on
+   every trained per-anchor leaf equal to the bit but for a zero's sign
+   (the gather's backward adds from +0). The cotangents the row gather's
+   backward takes in a phase-0, 1 and 2 step at the default config: the
+   padding entries' exactly zero and all finite. gather_rows_bwd on phase
+   0's: the same bits from two launches, bitwise its plain version on the
+   CPU on every row whose run is one entry, and on the pad row bitwise
+   where the padding's cotangents are zero (else within the rounding of
+   two float32 sums of its run). gather_rows_bwd where runs that cross
+   chunks carry values (``crossing_runs``): the main path's index with a
+   seeded nonzero cotangent on every entry, and with row C - 1 live;
+   bitwise its numpy twin, the same bits twice, within (longest run) x
+   2^-24 of the summed magnitudes of a float64 ``index_add_``, and with
+   row C - 1 live bitwise the CPU's plain version where the padding's
+   cotangents are zero. The compacted and the dense step's device
+   ms; the backward's ms against torch's backward of ``x[idx]``
+   (``index_put_`` with accumulate) and against ``index_add_`` (atomic),
+   and its share of the compacted step.
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
 K4 at the render's shapes with their training, post-schedule, decoded,
@@ -241,15 +268,17 @@ grown, pipeline and cold-start shapes under ``train_shape``,
 and ``cold_start_shape`` (and fit_single_view's and phase 31's under
 ``fit_single_view_shape`` and ``fullscale_short_shape``), K2 at the
 training shape with its schedule, growth, pipeline, fit_single_view and
-fullscale_short shapes, hashgrid_bwd at a phase-2 step's; K1's
+fullscale_short shapes, hashgrid_bwd at a phase-2 step's,
+gather_rows_bwd at phase 32's compacted phase-0 step's; K1's
 and K2's strips of phase 26 at tile 16 under ``strip_shape``,
 ``train_strip_shape`` and ``render_strip_shape``; launches of the
 render, train, schedule, decoded orbit and growth paths, the pipeline,
 the cold start, the device loop and its growth run (graph replays
 counted), the batched trainer, fit_single_view, phases 27, 28 and 29
-(summed over the ranks) and phase 31 (graph replays counted); the ptxas
-report of each: registers, static shared memory, spill bytes; for K1 and
-K2 also the block shape and dynamic shared memory), the one before it
+(summed over the ranks), phase 31 (graph replays counted) and phase
+32's two loops; the ptxas report of each: registers, static shared
+memory, spill bytes; for K1 and K2 also the block shape and dynamic
+shared memory), the one before it
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits 1 before
 printing anything on stdout.
@@ -386,6 +415,19 @@ FULLSCALE_FILES = ("traindata.npz", "point_cloud.ply", "gsplat.ply",
 # phase 30: the ring's scene and tests/test_ring.py's tolerances
 RING_SPLATS, RING_SIZE = 4096, 128
 RING_TOL = {"color": (1e-5, 1e-5), "depth": (1e-4, 1e-4)}
+# phase 32: run_fullscale's --visible_capacity on phase 2's scene (139,264
+# rows); the steps held to the dense decode leave out the one loss term
+# that averages over the decoded rows (the scaling regularizer's mean over
+# capacity x K children dense, visible_capacity x K compacted, as in the
+# JAX package), so that both compute one function; the device-loop run:
+# phase 0 (1-3, the bounds refresh before 3) and phase 2 (4-6)
+COMPACT_CAPACITY = 131072
+COMPACT_SAME_FN = dict(voxel_size=0.03, use_dpr=True, lambda_scaling_reg=0.0)
+COMPACT_LOOP = dict(voxel_size=0.03, use_dpr=True, start_stat=0,
+                    iterations=6, noise_from_step=3, context_from_step=3,
+                    update_from=10 ** 9, visible_capacity=COMPACT_CAPACITY)
+COMPACT_REPS = 5               # timed steps and backward calls
+COMPACT_TRAINED = ("anchor", "offset", "mask_logit", "feat", "scaling_log")
 RING_GRAD_ATOL, RING_GRAD_RTOL = 3e-5, 2e-4   # atol of each largest
 
 
@@ -486,6 +528,29 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SPAN_PREFIXES = ("train.", "tile_blend.", "decode.")  # record_function spans
+
+
+def kernel_table(prof) -> list[dict]:
+    """Device time and calls by kernel name, largest first."""
+    from torch.autograd import DeviceType
+    kernels = []
+    for e in prof.key_averages():
+        # device-side events only (the CPU op that launched a kernel carries
+        # the same time again), and no span: a span's device-side event
+        # covers the kernels inside it, idle gaps included
+        if (e.device_type != DeviceType.CUDA
+                or e.key.startswith(SPAN_PREFIXES)):
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            kernels.append({"name": e.key[:90], "device_us": dev_us,
+                            "calls": e.count})
+    kernels.sort(key=lambda k: -k["device_us"])
+    return kernels
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -2583,17 +2648,6 @@ def trainer_digest(tr) -> dict:
             "densify_rng": json.dumps(tr.densify_rng.bit_generator.state)}
 
 
-def counters_of() -> dict:
-    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
-                                                     blend_forward)
-    from bloomscene_tpu_torch.ops.cuda.expand import expand_slab
-    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import grid_scatter
-    from bloomscene_tpu_torch.ops.cuda.pairs import expand_pairs
-    return {"pair_expansion": expand_pairs, "slab_expansion": expand_slab,
-            "blend_forward": blend_forward, "blend_backward": blend_backward,
-            "hashgrid_bwd": grid_scatter}
-
-
 def counted(fn, counters: dict):
     """fn() with every launch counter set to 0 just before and read just
     after -> (result, launches)."""
@@ -2627,12 +2681,13 @@ def tile_parallel_run(job: dict, mesh):
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.convert import model_to
     from bloomscene_tpu_torch.models.render import render
+    from bloomscene_tpu_torch.ops.cuda import wrappers
     from bloomscene_tpu_torch.parallel.sharded import (
         make_tile_parallel_render, make_tile_parallel_train_step)
     from bloomscene_tpu_torch.train.loop import make_train_step
     from bloomscene_tpu_torch.train.optim import Adam, make_trainable
     dev = torch.device(job["device"])
-    counters = counters_of()
+    counters = wrappers()
     cfg, cfg_t = GSConfig(**job["cfg"]), GSConfig(**job["cfg_t"])
     cam = job["cams"][0]
     intr, arrs = cam.intrinsics, cam.device_arrays(dev)
@@ -2688,6 +2743,7 @@ def dp_mesh_run(job: dict, mesh, iterations: int):
     from the perturbed start, for ``iterations`` steps (``timed_run``)."""
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.ops.cuda import wrappers
     from bloomscene_tpu_torch.train.loop import Trainer
     dev = torch.device(job["device"])
     cfg = GSConfig(**MESH_SCHEDULE)
@@ -2696,7 +2752,7 @@ def dp_mesh_run(job: dict, mesh, iterations: int):
                  job["voxel"], seed=SEED, device=job["device"],
                  dp_batch=MESH_BATCH, mesh=mesh)
     records, ms, launches, wall, peak, caught = timed_run(
-        tr, views, iterations, counters_of())
+        tr, views, iterations, wrappers())
     return {"history": [{k: v for k, v in r.items() if k != "densify_time_s"}
                         for r in records],
             "ms": ms, "launches": launches, "wall_s": wall,
@@ -3080,6 +3136,372 @@ def fullscale_short_phase(workdir: str, counters: dict, card: str):
     return bs, out, all(checks.values())
 
 
+def sorted_segment_sum(g: np.ndarray, idx: np.ndarray, C: int
+                       ) -> np.ndarray:
+    """numpy twin of csrc/gather_rows_bwd.cu, in float32 and in its order,
+    over the leaves' columns side by side (g [V, K]): zeroed rows; each
+    chunk of CHUNK entries adds each run in entry order from 0, writing it
+    to its row if the run lies in the chunk, else to the chunk's partial
+    (slot 0: it came from the chunk before, slot 1: it goes on); then each
+    crossing run's fragments in chunk order, in GROUPS contiguous shares
+    each from 0, the shares added in order from 0. A partial never written
+    stays NaN."""
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import CHUNK, GROUPS
+    V, K = g.shape
+    out = np.zeros((C, K), np.float32)
+    n_chunks = -(-V // CHUNK)
+    part = np.full((n_chunks, 2, K), np.nan, np.float32)
+    for ch in range(n_chunks):
+        base = ch * CHUNK
+        n = min(CHUNK, V - base)
+        s = np.concatenate([[idx[base - 1] if base else -1],
+                            idx[base:base + n],
+                            [idx[base + n] if base + n < V else -2]])
+        acc = np.zeros(K, np.float32)
+        for i in range(n):
+            r = s[i + 1]
+            acc = acc + g[base + i]
+            if r != s[i + 2] or i == n - 1:
+                from_prev = r == s[0]
+                to_next = i == n - 1 and r == s[n + 1]
+                if not (from_prev or to_next):
+                    out[r] = acc
+                else:
+                    part[ch, 0 if from_prev else 1] = acc
+                acc = np.zeros(K, np.float32)
+    for ch in range(n_chunks - 1):
+        last = ch * CHUNK + CHUNK - 1
+        r = idx[last]
+        if idx[last + 1] != r or (ch > 0 and idx[ch * CHUNK - 1] == r):
+            continue
+        m = (int(np.searchsorted(idx, r, side='right')) - 1) // CHUNK - ch + 1
+        frags = [part[ch, 1]] + [part[ch + t, 0] for t in range(1, m)]
+        per = -(-m // GROUPS)
+        total = np.zeros(K, np.float32)
+        for grp in range(GROUPS):
+            acc = np.zeros(K, np.float32)
+            for t in range(grp * per, min(m, grp * per + per)):
+                acc = acc + frags[t]
+            total = total + acc
+        out[r] = total
+    return out
+
+
+def crossing_runs(cot, idx, C: int, n_live: int, longest: int,
+                  pads_zero: bool) -> dict:
+    """gather_rows_bwd on the card where runs that cross chunks carry
+    values, which the main path's cotangents do not (the padding's are
+    zeros, so its run sums to the +0 the outputs were zeroed to):
+
+    - nonzero_every_entry: the main path's index, widths and C with a
+      seeded nonzero cotangent on every entry, so the pad row is the sum
+      of run_sums' fragments;
+    - row_c_minus_1_live: the main path's cotangents on its index with the
+      last live entry moved onto row C - 1, so that row's run is one live
+      entry and the padding, and its value comes through run_sums.
+
+    Each bitwise its numpy twin (``sorted_segment_sum``) and the same bits
+    from two launches; within (longest run) x 2^-24 of each row's summed
+    magnitudes of a float64 ``index_add_`` (a float32 sum of that many
+    terms in any order rounds within it); row_c_minus_1_live bitwise its
+    plain version on the CPU where the padding's cotangents are zeros."""
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
+        gather_rows_bwd, gather_rows_bwd_plain)
+    rng = np.random.default_rng(SEED + 13)
+    V, widths = idx.shape[0], [g.shape[1] for g in cot]
+    seeded = [torch.from_numpy(rng.normal(size=(V, k)).astype(np.float32))
+              .to(idx.device) for k in widths]
+    cases = {"nonzero_every_entry": (seeded, idx)}
+    if n_live:
+        moved = idx.clone()
+        moved[n_live - 1] = C - 1
+        cases["row_c_minus_1_live"] = (cot, moved)
+    out = {}
+    for case, (g, i) in cases.items():
+        got = gather_rows_bwd(g, i, C)
+        again = gather_rows_bwd(g, i, C)
+        g_cpu, i_cpu = [x.cpu() for x in g], i.cpu()
+        twin = np.split(sorted_segment_sum(torch.cat(g_cpu, 1).numpy(),
+                                           i_cpu.numpy(), C),
+                        np.cumsum(widths)[:-1], axis=1)
+        ref = gather_rows_bwd_plain([x.double() for x in g_cpu], i_cpu, C)
+        mag = gather_rows_bwd_plain([x.double().abs() for x in g_cpu],
+                                    i_cpu, C)
+        r = {"same_bits_two_launches": all(
+                 bit_equal(a, b) for a, b in zip(got, again)),
+             "bitwise_twin": all(bit_equal(a.cpu(), torch.from_numpy(t))
+                                 for a, t in zip(got, twin)),
+             "within_rounding": all(
+                 bool(((a.cpu().double() - f).abs()
+                       <= longest * 2.0 ** -24 * m).all())
+                 for a, f, m in zip(got, ref, mag)),
+             "max_abs_err_float64": max(
+                 float((a.cpu().double() - f).abs().max())
+                 for a, f in zip(got, ref))}
+        if case == "row_c_minus_1_live" and pads_zero:
+            plain = gather_rows_bwd_plain(g_cpu, i_cpu, C)
+            r["bitwise_plain"] = all(bit_equal(a.cpu(), b)
+                                     for a, b in zip(got, plain))
+        out[case] = r
+    return out
+
+
+def compacted_grads(start, cfg, intr, view, phase: int, dense_noise):
+    """One step's forward and backward (``step_gradients``, as
+    ``Trainer``'s step takes them) from a trainable copy of ``start`` at
+    ``cfg`` -> (each trained per-anchor leaf's gradient [C, k] by field,
+    and for a compacted decode the cotangents and index the row gather's
+    backward took with the count of live entries, else None). The decode's
+    draws are ``dense_noise`` (over the C rows) at the rows it decodes, so
+    each anchor takes the same draw whether its row is compacted or not."""
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models import anchors
+    from bloomscene_tpu_torch.models.decode import DecodeNoise
+    from bloomscene_tpu_torch.models.render import (compact_visible,
+                                                    prefilter_anchors)
+    from bloomscene_tpu_torch.train.loop import step_gradients
+    from bloomscene_tpu_torch.train.optim import Adam, make_trainable
+    cam, gt_image, gt_depth = view
+    dev = gt_image.device
+    model = make_trainable(model_to(start, dev))
+    C = model.state.capacity
+    adam = Adam(cfg, 1.0, model)
+    noise, n_live = dense_noise, None
+    if cfg.visible_capacity is not None:
+        visible = prefilter_anchors(model, intr, cam)
+        n_live = min(int(visible.sum()), cfg.visible_capacity)
+        _, idx = compact_visible(model, visible, cfg.visible_capacity)
+        safe = torch.clamp(idx, max=C - 1)
+        if dense_noise is not None:
+            noise = DecodeNoise(*(None if x is None else x[safe]
+                                  for x in dense_noise))
+    taken, original = [], anchors.gather_rows_bwd
+
+    def record(grads, idx_, n_rows):
+        taken.append(([g.clone() for g in grads], idx_.clone(), n_live))
+        return original(grads, idx_, n_rows)
+
+    anchors.gather_rows_bwd = record
+    try:
+        *_, grads, _ = step_gradients(
+            cfg, intr, torch.zeros(3, device=dev), model,
+            [p for _, _, p in adam.params], cam, gt_image, gt_depth, phase,
+            noise)
+    finally:
+        anchors.gather_rows_bwd = original
+    by_name = {n: g for (n, _, _), g in zip(adam.params, grads)}
+    return ({f: by_name[f"state.{f}"].reshape(C, -1)
+             for f in COMPACT_TRAINED}, taken[0] if taken else None)
+
+
+def step_device_ms(start, cfg, intr, view) -> float:
+    """Device ms of one phase-0 training step (``make_train_step``: the
+    forward, backward, Adam update and statistics) on a trainable copy of
+    ``start``: the kernels' device time under ``torch.profiler`` over
+    COMPACT_REPS steps after one warm-up (an eager step waits for the
+    host, so CUDA events around it would time the host too), summed by
+    ``kernel_table`` as profile_render_torch.py's ``device_ms_per_step``."""
+    from torch.profiler import ProfilerActivity, profile
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models import densify
+    from bloomscene_tpu_torch.train.loop import make_train_step
+    from bloomscene_tpu_torch.train.optim import Adam, make_trainable
+    cam, gt_image, gt_depth = view
+    dev = gt_image.device
+    model = make_trainable(model_to(start, dev))
+    adam = Adam(cfg, 1.0, model)
+    step = make_train_step(cfg, intr, adam, torch.zeros(3, device=dev))
+    stats = densify.init_stats(model.state.capacity, model.state.n_offsets,
+                               dev)
+    def run():
+        step(model, stats, cam, gt_image, gt_depth, phase=0,
+             track_stats=True)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(COMPACT_REPS):
+            run()
+        torch.cuda.synchronize()
+    us = sum(k["device_us"] for k in kernel_table(prof))
+    return us / 1e3 / COMPACT_REPS
+
+
+def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
+                         counters: dict, device: str = "cuda"):
+    """Phase 32: the compacted decode at run_fullscale's visible_capacity
+    (COMPACT_CAPACITY of phase 2's 139,264 rows) -> (summary, ok, the
+    kernels line's row for gather_rows_bwd)."""
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models.decode import draw_noise
+    from bloomscene_tpu_torch.ops.cuda import build
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
+        gather_rows_bwd, gather_rows_bwd_plain)
+    from bloomscene_tpu_torch.train.loop import Trainer
+    dev = torch.device(device)
+    intr = cams[0].intrinsics
+    views = device_views(cams, frames, depths, dev)
+    start = perturbed(model_to(fresh, dev), SEED)
+    C = start.state.capacity
+
+    # the path: Trainer.run, host loop then device loop, every counter set
+    # to 0 just before each and read just after
+    cfg_l = GSConfig(**COMPACT_LOOP)
+    n = cfg_l.iterations
+    host = Trainer(perturbed(model_to(fresh, dev), SEED), cfg_l, intr,
+                   voxel, seed=SEED, device=device)
+    host_rec, _, host_launches, host_wall, _, _ = timed_run(
+        host, views, n, counters)
+    loop = Trainer(perturbed(model_to(fresh, dev), SEED), cfg_l, intr,
+                   voxel, seed=SEED, device=device)
+    loop_rec, chunks, loop_launches_, loop_wall, _, _ = device_loop_run(
+        loop, views, n, counters)
+    launches = {k: host_launches[k] + loop_launches_[k]
+                for k in host_launches}
+    diff = trainer_differences(host, loop)
+    rec_diff = record_differences(host_rec, loop_rec)
+
+    # a compacted step's gradients against the dense step's, phases 0, 2
+    same = {}
+    for phase in (0, 2):
+        cfg_d = GSConfig(**COMPACT_SAME_FN)
+        noise = draw_noise(C, cfg_d, phase, torch.Generator(
+            device=dev).manual_seed(SEED + 11), dev)
+        dense, _ = compacted_grads(start, cfg_d, intr, views[0], phase,
+                                   noise)
+        comp, (_, _, n_live) = compacted_grads(
+            start, GSConfig(**COMPACT_SAME_FN,
+                            visible_capacity=COMPACT_CAPACITY),
+            intr, views[0], phase, noise)
+        alive = start.state.alive
+        # the row gather's backward adds a row's cotangents from +0, so a
+        # -0 cotangent arrives as +0 (as with torch's own x[idx]): every
+        # other bit must match
+        c = {f: comp[f][alive] for f in COMPACT_TRAINED}
+        d = {f: dense[f][alive] for f in COMPACT_TRAINED}
+        zeros = {f: (c[f] == 0) & (d[f] == 0) for f in COMPACT_TRAINED}
+        same[phase] = {
+            "live_entries": n_live, "alive_rows": int(alive.sum()),
+            "bit_differences": {
+                f: int(((bits(c[f]) != bits(d[f])) & ~zeros[f]).sum())
+                for f in COMPACT_TRAINED},
+            "zero_sign_differences": {
+                f: int(((bits(c[f]) != bits(d[f])) & zeros[f]).sum())
+                for f in COMPACT_TRAINED}}
+
+    # the padding's cotangents at the default config, phases 0-2
+    cfg_c = GSConfig(voxel_size=0.03, use_dpr=True,
+                     visible_capacity=COMPACT_CAPACITY)
+    pads, taken = {}, {}
+    for phase in (0, 1, 2):
+        noise = draw_noise(C, cfg_c, phase, torch.Generator(
+            device=dev).manual_seed(SEED + 12), dev)
+        _, taken[phase] = compacted_grads(start, cfg_c, intr, views[0],
+                                          phase, noise)
+        cot, _, n_live = taken[phase]
+        pads[phase] = {f: {"pad_entries": int(g.shape[0] - n_live),
+                           "nonzero": int((g[n_live:] != 0).sum()),
+                           "finite": bool(torch.isfinite(g).all())}
+                       for f, g in zip(COMPACT_TRAINED, cot)}
+    pads_zero = all(v["nonzero"] == 0 and v["finite"]
+                    for p in pads.values() for v in p.values())
+
+    # the kernel against its plain version on phase 0's cotangents
+    cot, idx, n_live = taken[0]
+    got = gather_rows_bwd(cot, idx, C)
+    again = gather_rows_bwd(cot, idx, C)
+    card_plain = gather_rows_bwd_plain(cot, idx, C)
+    cpu_plain = gather_rows_bwd_plain([g.cpu() for g in cot], idx.cpu(), C)
+    runs = torch.bincount(idx, minlength=C)
+    single = runs <= 1
+    longest = int(runs.max())
+    kernel = {"same_bits_two_launches": all(
+        bit_equal(a, b) for a, b in zip(got, again))}
+    kernel["bitwise_plain_single_entry_rows"] = all(
+        bit_equal(a[single].cpu(), b[single.cpu()])
+        for a, b in zip(got, cpu_plain))
+    # where the padding's cotangents are zeros, the pad row's sum is its
+    # live entry's (or 0) in any order; else it is held within the
+    # rounding of two float32 sums of its run
+    kernel["pad_row"] = ("bitwise" if pads_zero else
+                         f"within {longest} x 2^-24 of its summed "
+                         f"magnitudes")
+    if pads_zero:
+        kernel["bitwise_plain"] = all(bit_equal(a.cpu(), b)
+                                      for a, b in zip(got, cpu_plain))
+    else:
+        mags = gather_rows_bwd_plain([g.abs() for g in cot], idx, C)
+        kernel["bitwise_plain"] = all(
+            bool(((a - b).abs() <= longest * 2.0 ** -24 * m).all())
+            for a, b, m in zip(got, card_plain, mags))
+    kernel["bitwise_card_plain"] = all(bit_equal(a, b)
+                                       for a, b in zip(got, card_plain))
+    err = max(max_abs(a.cpu(), b) for a, b in zip(got, cpu_plain))
+    widths = [g.shape[1] for g in cot]
+    V, K = idx.shape[0], sum(widths)
+    crossing = crossing_runs(cot, idx, C, n_live, longest, pads_zero)
+    ms = time_ms(lambda: gather_rows_bwd(cot, idx, C), COMPACT_REPS)
+    plain_ms = time_ms(lambda: gather_rows_bwd_plain(cot, idx, C),
+                       COMPACT_REPS)
+    # torch's backward of x[idx]: index_put_ with accumulate, each leaf
+    lib_ms = time_ms(lambda: [torch.zeros((C, g.shape[1]), device=dev)
+                              .index_put_((idx,), g, accumulate=True)
+                              for g in cot], COMPACT_REPS)
+    # the index and cotangents read once, every row written once
+    bound_ms, bound_by = bound(8 * V + 4 * V * K + 4 * C * K, V * K)
+    compact_ms = step_device_ms(start, cfg_c, intr, views[0])
+    dense_ms = step_device_ms(start, GSConfig(voxel_size=0.03, use_dpr=True),
+                              intr, views[0])
+    row = dict(
+        name="gather_rows_bwd", route="cuda",
+        source="bloomscene_tpu_torch/csrc/gather_rows_bwd.cu",
+        # no TPU kernel: the transpose of this gather, XLA's scatter-add
+        replaces="bloomscene_tpu/models/anchors.py:166", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / ms, library_ms=lib_ms,
+        library="torch's backward of x[idx] (index_put_, accumulate)",
+        **ptxas_report(build.build_log("gather_rows_bwd")),
+        shapes={"entries": V, "live_entries": n_live, "rows": C,
+                "columns": K, "leaves": widths, "longest_run": longest})
+
+    loop_ok = {
+        "compacts": C > COMPACT_CAPACITY,
+        "bitwise_equal_to_host_loop": not diff,
+        "records_equal_to_host_loop": not rec_diff,
+        "losses_finite": all(np.isfinite(r["loss"]) for r in loop_rec),
+        "graphs_hold_the_step_kernels": graph_checks(loop.graph_log, 2)
+        and all(g["launches"]["gather_rows_bwd"] == 1
+                for g in loop.graph_log),
+        "launches_as_host_loop": loop_launches_ == host_launches,
+        "gather_rows_bwd_once_per_step":
+            host_launches["gather_rows_bwd"] == n,
+        "phases_0_and_2": sorted({c["phase"] for c in loop.chunk_log})
+        == [0, 2]}
+    checks = {
+        **loop_ok,
+        "gradients_bitwise_dense_at_alive_rows": all(
+            not any(v["bit_differences"].values()) for v in same.values()),
+        "padding_cotangents_zero": pads_zero,
+        **{f"kernel_{k}": v for k, v in kernel.items()
+           if k not in ("bitwise_card_plain", "pad_row")},
+        **{f"crossing_{case}_{k}": v for case, r in crossing.items()
+           for k, v in r.items() if k != "max_abs_err_float64"}}
+    summary = {
+        "capacity": C, "visible_capacity": COMPACT_CAPACITY, "steps": n,
+        "host_loop_wall_s": host_wall, "device_loop_wall_s": loop_wall,
+        "chunks": chunks, "graphs": loop.graph_log, "launches": launches,
+        "differences": diff, "record_differences": rec_diff[:20],
+        "dense_vs_compacted": same, "padding": pads, "kernel": kernel,
+        "crossing_runs": crossing,
+        "step_device_ms": {"compacted": compact_ms, "dense": dense_ms},
+        "backward_ms": {"gather_rows_bwd": ms, "index_put_accumulate": lib_ms,
+                        "index_add_": plain_ms},
+        "backward_share_of_compacted_step": ms / compact_ms,
+        "checks": checks}
+    return summary, all(checks.values()), row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3088,12 +3510,7 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     from bloomscene_tpu_torch.config import GSConfig
-    from bloomscene_tpu_torch.ops.cuda import build
-    from bloomscene_tpu_torch.ops.cuda.blend import (blend_backward,
-                                                     blend_forward)
-    from bloomscene_tpu_torch.ops.cuda.expand import expand_slab
-    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import grid_scatter
-    from bloomscene_tpu_torch.ops.cuda.pairs import expand_pairs
+    from bloomscene_tpu_torch.ops.cuda import build, wrappers
     from bloomscene_tpu_torch.pipeline.bloomscene import render_model
     failed = []
 
@@ -3129,11 +3546,7 @@ def main() -> int:
 
     # 3. main path
     cams = orbit_cameras(N_FRAMES, 512, 512, repo)
-    counters = {"pair_expansion": expand_pairs,
-                "slab_expansion": expand_slab,
-                "blend_forward": blend_forward,
-                "blend_backward": blend_backward,
-                "hashgrid_bwd": grid_scatter}
+    counters = wrappers()
     for fn in counters.values():
         fn.launches = 0
     stats: list = []
@@ -3147,7 +3560,8 @@ def main() -> int:
     shapes = all(f.shape == (512, 512, 3) and d.shape == (512, 512)
                  for f, d in zip(frames, depths))
     pairs_ok = all(s["num_pairs"] > 0 for s in stats)
-    counts_ok = all(v == (0 if name in ("blend_backward", "hashgrid_bwd")
+    counts_ok = all(v == (0 if name in ("blend_backward", "hashgrid_bwd",
+                                        "gather_rows_bwd")
                           else len(frames))
                     for name, v in launches.items())
     emit({"phase": "render", "frames": len(frames), "fps": fps,
@@ -3476,6 +3890,19 @@ def main() -> int:
     emit({"phase": "fullscale_short_seconds",
           "seconds": time.perf_counter() - t0})
 
+    # 32. the compacted decode at run_fullscale's visible_capacity: the
+    # host and device loops, the step's gradients against the dense
+    # decode's, the padding's cotangents, gather_rows_bwd against its
+    # plain version, the step and backward times
+    t0 = time.perf_counter()
+    cs, cs_ok, cs_row = compacted_step_phase(fresh, cams, frames, depths,
+                                             voxel, counters)
+    emit({"phase": "compacted_step", "card": card, **cs,
+          "seconds": time.perf_counter() - t0, "ok": cs_ok})
+    if not cs_ok:
+        failed.append("compacted_step")
+    emit({"phase": "kernel", "at": "compacted_step", "card": card, **cs_row})
+
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
     for r, t, u, d, g, pp, c, f, fs_r in zip(
@@ -3499,7 +3926,7 @@ def main() -> int:
     rows[2]["train_strip_shape"] = strip_entries["k1_train"]
     row["strip_shape"] = strip_entries["k2_train"]
     row["render_strip_shape"] = strip_entries["k2_render"]
-    rows += [row, hg_row]
+    rows += [row, hg_row, cs_row]
     # a kernel's launches are those of the main paths: render, train, the
     # schedule, the decoded orbit, the growth run, the CLI's pipeline and
     # its cold start, the device loop (a captured launch counted once a
@@ -3515,7 +3942,8 @@ def main() -> int:
              "fit_single_view": fit_launches,
              "tile_parallel": tp["launches"], "dp_mesh": dpm["launches"],
              "nccl_world1": nccl["launches"],
-             "fullscale_short": fs["launches"]}
+             "fullscale_short": fs["launches"],
+             "compacted_step": cs["launches"]}
     for r in rows:
         for path, counts in paths.items():
             r[f"launches_{path}"] = counts[r["name"]]

@@ -55,28 +55,7 @@ import time
 
 import torch
 
-
-SPAN_PREFIXES = ("train.", "tile_blend.", "decode.")  # record_function
-
-
-def kernel_table(prof) -> list[dict]:
-    """Device time and calls by kernel name, largest first."""
-    from torch.autograd import DeviceType
-    kernels = []
-    for e in prof.key_averages():
-        # device-side events only (the CPU op that launched a kernel carries
-        # the same time again), and no span: a span's device-side event
-        # covers the kernels inside it, idle gaps included
-        if (e.device_type != DeviceType.CUDA
-                or e.key.startswith(SPAN_PREFIXES)):
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            kernels.append({"name": e.key[:90], "device_us": dev_us,
-                            "calls": e.count})
-    kernels.sort(key=lambda k: -k["device_us"])
-    return kernels
+from chip_smoke import SPAN_PREFIXES, kernel_table
 
 
 def span_table(prof, steps: int) -> dict:

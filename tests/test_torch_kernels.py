@@ -22,6 +22,14 @@ card; the twin within 1e-6 of each cell's summed magnitudes of a float64
 ``index_add_`` on the CPU; bitwise equal to itself from one launch to the
 next.
 
+gather_rows_bwd (the compacted decode's row-gather backward, no TPU
+counterpart): bitwise against ``chip_smoke.sorted_segment_sum``, a numpy
+twin of its algorithm, on the card, and bitwise equal to itself from one
+launch to the next; the twin within 1e-6 of each row's summed magnitudes of a
+float64 ``index_add_`` on the CPU, and bitwise the sequential
+``index_add_`` (torch's sum for ``x[idx]``) where every entry of a run
+but one is zero, as the padding's are in a training step.
+
 ``blend_case`` builds the edge cases' slabs; tests/test_torch_blend_edges.py
 holds the plain versions against the JAX package on the same cases.
 ``pairs_case`` and ``slab_case`` build K3's and K4's edge cases: the
@@ -34,6 +42,7 @@ import torch
 
 from bloomscene_tpu_torch.ops import graphics, projection
 from bloomscene_tpu_torch.ops.cuda import build
+from chip_smoke import sorted_segment_sum
 
 torch.set_num_threads(2)
 TILE = 16
@@ -345,6 +354,124 @@ def test_hashgrid_bwd_kernel(case):
     plain = grid_scatter_plain(rows.to(dev), idx.to(dev), n_cells).cpu()
     mag = grid_scatter_plain(rows.abs(), idx, n_cells)
     assert bool(((got.cpu() - plain).abs() <= 2e-6 * mag).all())
+
+
+GATHER_CASES = ('pad0', 'pad1', 'pad2', 'pad1000', 'pad10000', 'last_live',
+                'chunk_edges', 'aligned', 'short')
+GATHER_WIDTHS = (3, 30, 10, 50, 6)   # anchor, offset, mask, feat, scaling
+GATHER_ROWS = 4000
+
+
+def gather_case(case: str, seed: int = 0):
+    """The row-gather backward's inputs as ``compact_visible`` makes them:
+    one cotangent [V, k] float32 a leaf (GATHER_WIDTHS, the five trained
+    per-anchor leaves), idx [V] int64 nondecreasing in [0, C), C, and the
+    first padding entry (V where there is none).
+
+    - padN: 1,500 visible rows of C - 1 (sorted, C - 1 not among them),
+      then N padding entries on row C - 1 with zero cotangents;
+    - last_live: as pad1000 with row C - 1 visible, so its run is one live
+      entry and the padding;
+    - chunk_edges: runs of 1, 255, 256, 257, 511, 2, 513 and 1 entries
+      (nonzero cotangents) on sorted rows, crossing and ending at the
+      kernel's chunks of 256 entries;
+    - aligned: runs of 256, 256, 1, 255 and 256 entries, so runs end and
+      start on chunk boundaries, V a multiple of the chunk;
+    - short: 5 entries, fewer than one chunk, rows unnamed before the
+      first and after the last."""
+    rng = np.random.default_rng(seed)
+    C = GATHER_ROWS
+    if case.startswith('pad') or case == 'last_live':
+        n_pad = 1000 if case == 'last_live' else int(case[3:])
+        vis = np.sort(rng.choice(C - 1, 1500, replace=False))
+        if case == 'last_live':
+            vis = np.append(vis, C - 1)
+        idx = np.concatenate([vis, np.full(n_pad, C - 1)])
+        pad_start = vis.size
+    else:
+        lengths = {'chunk_edges': (1, 255, 256, 257, 511, 2, 513, 1),
+                   'aligned': (256, 256, 1, 255, 256),
+                   'short': (1, 1, 1, 1, 1)}[case]
+        rows = np.sort(rng.choice(np.arange(7, C - 7), len(lengths),
+                                  replace=False))
+        idx = np.repeat(rows, lengths)
+        pad_start = idx.size
+    grads = []
+    for k in GATHER_WIDTHS:
+        g = rng.normal(size=(idx.size, k)).astype(np.float32)
+        g[pad_start:] = 0.0
+        grads.append(torch.from_numpy(g))
+    return grads, torch.from_numpy(idx.astype(np.int64)), C, pad_start
+
+
+def split_columns(out: np.ndarray, widths=GATHER_WIDTHS) -> list:
+    return np.split(out, np.cumsum(widths)[:-1], axis=1)
+
+
+def int_bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits, so that -0.0 and 0.0 differ."""
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize('case', GATHER_CASES)
+def test_gather_rows_bwd_algorithm(case):
+    """The row-gather backward's algorithm (its numpy twin) reads no
+    partial it did not write, lies within 1e-6 of each row's summed
+    magnitudes of a float64
+    ``index_add_`` (unnamed rows exactly 0), and where each run's entries
+    but one are zeros (every case but chunk_edges and aligned) equals the
+    CPU wrapper, the sequential ``index_add_``, bit for bit."""
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
+        gather_rows_bwd)
+    grads, idx, C, pad_start = gather_case(case)
+    twin = sorted_segment_sum(torch.cat(grads, 1).numpy(), idx.numpy(), C)
+    assert not np.isnan(twin).any()
+    plain = gather_rows_bwd(grads, idx, C)
+    for got, want, g in zip(split_columns(twin), plain, grads):
+        ref = torch.zeros((C, g.shape[1]), dtype=torch.float64).index_add_(
+            0, idx, g.double()).numpy()
+        mag = torch.zeros((C, g.shape[1]), dtype=torch.float64).index_add_(
+            0, idx, g.double().abs()).numpy()
+        assert np.all(np.abs(got - ref) <= 1e-6 * mag)
+        assert np.all(got[mag == 0] == 0)
+        if case not in ('chunk_edges', 'aligned'):
+            assert torch.equal(int_bits(torch.from_numpy(got)),
+                               int_bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', GATHER_CASES)
+def test_gather_rows_bwd_kernel(case):
+    """gather_rows_bwd bitwise against its numpy twin, against the CPU's
+    sequential ``index_add_`` where each run's entries but one are zeros,
+    and against itself across two launches; within 2e-6 of the summed
+    magnitudes of its plain version on the card (atomic float32 adds);
+    one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
+        gather_rows_bwd, gather_rows_bwd_plain)
+    grads, idx, C, _ = gather_case(case)
+    dev = torch.device('cuda')
+    g_dev, i_dev = [g.to(dev) for g in grads], idx.to(dev)
+    before = gather_rows_bwd.launches
+    got = gather_rows_bwd(g_dev, i_dev, C)
+    again = gather_rows_bwd(g_dev, i_dev, C)
+    torch.cuda.synchronize()
+    assert gather_rows_bwd.launches == before + 2
+    twin = split_columns(sorted_segment_sum(torch.cat(grads, 1).numpy(),
+                                            idx.numpy(), C))
+    cpu = gather_rows_bwd_plain(grads, idx, C)
+    card_plain = gather_rows_bwd_plain(g_dev, i_dev, C)
+    for j, g in enumerate(grads):
+        assert torch.equal(int_bits(got[j]), int_bits(again[j]))
+        assert torch.equal(int_bits(got[j].cpu()),
+                           int_bits(torch.from_numpy(twin[j])))
+        if case not in ('chunk_edges', 'aligned'):
+            assert torch.equal(int_bits(got[j].cpu()), int_bits(cpu[j]))
+        mag = gather_rows_bwd_plain([g.abs()], idx, C)[0]
+        assert bool(((got[j].cpu() - card_plain[j].cpu()).abs()
+                     <= 2e-6 * mag).all())
 
 
 def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
