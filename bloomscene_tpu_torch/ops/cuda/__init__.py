@@ -11,10 +11,13 @@ def wrappers() -> dict:
     from .expand import expand_slab
     from .gather_rows_bwd import gather_rows_bwd
     from .hashgrid_bwd import grid_scatter
+    from .hashgrid_encode import hashgrid_encode, hashgrid_encode_bwd
     from .pairs import expand_pairs
     return {"pair_expansion": expand_pairs, "slab_expansion": expand_slab,
             "blend_forward": blend_forward, "blend_backward": blend_backward,
-            "hashgrid_bwd": grid_scatter, "gather_rows_bwd": gather_rows_bwd}
+            "hashgrid_bwd": grid_scatter, "gather_rows_bwd": gather_rows_bwd,
+            "hashgrid_encode": hashgrid_encode,
+            "hashgrid_encode_bwd": hashgrid_encode_bwd}
 
 
 def reset_launch_counts() -> None:

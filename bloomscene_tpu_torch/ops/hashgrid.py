@@ -22,6 +22,19 @@ corner) are one ``index_select`` of the flat table, whose backward is
 ``ops/cuda/hashgrid_bwd.py::grid_scatter``: on the card a kernel that
 adds each cell's entries in a fixed order, so two identical steps give
 the same table gradients; on the CPU ``index_add_``.
+
+On the card ``mix_encode`` is one hand-written kernel instead
+(``ops/cuda/hashgrid_encode.py``, ``_MixEncode``): the forward writes all
+four encoders' features in one launch, bitwise the eager code; the backward
+writes every corner's cotangent row and table index, bitwise the rows the
+eager path's autograd hands ``grid_scatter``, and the gradient to ``x``.
+On the CPU ``mix_encode`` is the eager code, the kernel's plain version.
+``mix_encode_backward_plain`` is the backward kernel's arithmetic in its
+order, in torch: the rows are autograd's ops (``where``, ``/``, ``*``); the
+gradient to ``x`` is autograd's chain of products, summed in the order
+autograd's engine accumulates it (below), and each sum over the F
+features of a corner in CUDA's order for a reduction of F contiguous
+floats (``_feature_sum``).
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import numpy as np
 import torch
 
 from .cuda.hashgrid_bwd import grid_scatter
+from .cuda.hashgrid_encode import hashgrid_encode, hashgrid_encode_bwd
 from .quantization import ste_binary
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
@@ -207,9 +221,64 @@ def init_mix_params(spec: Mix3D2DSpec, generator: torch.Generator,
     }
 
 
+MIX_ENCODERS = ('xyz', 'xy', 'xz', 'yz')   # the output's order
+
+
+def mix_parts(spec: Mix3D2DSpec) -> tuple:
+    """The four encoders in output order: (name, GridSpec, the columns of x
+    it reads); the first reads x itself."""
+    return (('xyz', spec.spec_xyz, (0, 1, 2)), ('xy', spec.spec_2d, (0, 1)),
+            ('xz', spec.spec_2d, (0, 2)), ('yz', spec.spec_2d, (1, 2)))
+
+
+def mix_tables(params: dict, spec: Mix3D2DSpec) -> tuple:
+    """The four encoders' [n_params, F] tables as the encode reads them
+    (binarized when spec.ste_binary), in output order."""
+    out = []
+    for name in MIX_ENCODERS:
+        t = params[name].reshape(-1, spec.n_features)
+        out.append(ste_binary(t) if spec.ste_binary else t)
+    return tuple(out)
+
+
+class _MixEncode(torch.autograd.Function):
+    """mix_encode on the card over the binarized tables: the forward kernel,
+    and as the backward the backward kernel (each corner's cotangent row and
+    table index, and the gradient to x), then ``grid_scatter`` on each
+    table's rows."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *tables):
+        ctx.spec = spec
+        ctx.save_for_backward(x, *tables)
+        return hashgrid_encode(x, tables, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *tables = ctx.saved_tensors
+        rows, idx, dx = hashgrid_encode_bwd(x, tables, g.contiguous(),
+                                            ctx.spec)
+        grads = [grid_scatter(r, i, t.shape[0]) if need else None
+                 for r, i, t, need in zip(rows, idx, tables,
+                                          ctx.needs_input_grad[2:])]
+        return (None, dx, *grads)
+
+
 def mix_encode(params: dict, x: torch.Tensor,
                spec: Mix3D2DSpec) -> torch.Tensor:
-    """x [N,3] in [0,1] -> concat(xyz, xy, xz, yz) features."""
+    """x [N,3] in [0,1] -> concat(xyz, xy, xz, yz) features: on the card
+    the hash-grid kernel (``_MixEncode``; under no_grad, or with no input
+    that needs a gradient, autograd keeps nothing of it), on the CPU the
+    eager code."""
+    if x.device.type == 'cpu':
+        return mix_encode_plain(params, x, spec)
+    return _MixEncode.apply(spec, x, *mix_tables(params, spec))
+
+
+def mix_encode_plain(params: dict, x: torch.Tensor,
+                     spec: Mix3D2DSpec) -> torch.Tensor:
+    """mix_encode in eager torch on any device: the kernel's plain
+    version."""
     out_xyz = grid_encode(params['xyz'], x, spec.spec_xyz)
     # slices, not list indices: a list index is copied to the card on
     # every call, which a CUDA graph cannot capture
@@ -217,6 +286,113 @@ def mix_encode(params: dict, x: torch.Tensor,
     out_xz = grid_encode(params['xz'], x[:, 0::2], spec.spec_2d)
     out_yz = grid_encode(params['yz'], x[:, 1:3], spec.spec_2d)
     return torch.cat([out_xyz, out_xy, out_xz, out_yz], -1)
+
+
+def _feature_sum(t: torch.Tensor) -> torch.Tensor:
+    """[N, F] -> [N]: the sum over the F features (a power of two) in the
+    order of torch's CUDA reduction of F contiguous floats, the order of
+    ``sum_to`` in the eager backward on the card: F lanes, then shuffles
+    down at offsets F/2, F/4, ..., 1 ((t0 + t2) + (t1 + t3) at F = 4)."""
+    cols = list(t.unbind(-1))
+    off = len(cols) // 2
+    while off:
+        cols = [cols[i] + cols[i + off] for i in range(off)]
+        off //= 2
+    return cols[0]
+
+
+def grid_encode_backward_plain(emb: torch.Tensor, x: torch.Tensor,
+                               g: torch.Tensor, spec: GridSpec) -> tuple:
+    """The backward kernel's arithmetic for one encoder, in torch and in its
+    order: emb [n_params, F] the table as the encode reads it, x [N, d] the
+    encoder's input, g [N, L*F] its output's cotangent -> (rows [L*2^d*N,
+    F] and idx [L*2^d*N] int64, level-major, corner, row: the cotangents of
+    the corner gathers, autograd's ops where(in_bounds, g, 0) / (wn + 1e-9)
+    * w; each level's gradient to x [N, d])."""
+    n, D, F = x.shape[0], spec.num_dim, spec.n_features
+    in_bounds = torch.all((x >= 0.0) & (x <= 1.0), dim=-1)
+    g = torch.where(in_bounds[:, None], g, 0.0)
+    ones = torch.ones((n,), dtype=torch.float32, device=x.device)
+    rows, idx, dx_levels = [], [], []
+    for li, R in enumerate(spec.resolutions):
+        pos = x * (R - 2) + 0.5
+        pos0f = torch.floor(pos)
+        frac = pos - pos0f
+        pos0 = pos0f.to(torch.int64)
+        acc = torch.zeros((n, F), dtype=torch.float32, device=x.device)
+        wn = torch.zeros((n,), dtype=torch.float32, device=x.device)
+        corners = []
+        for corner in range(2 ** D):
+            # the weight's factors and the products before each, from 1
+            fs, before, coords = [], [ones], []
+            for d in range(D):
+                if (corner >> d) & 1:
+                    fs.append(frac[:, d])
+                    coords.append(torch.clamp(pos0[:, d] + 1, max=R - 1))
+                else:
+                    fs.append(1.0 - frac[:, d])
+                    coords.append(pos0[:, d])
+                before.append(before[-1] * fs[-1])
+            coords = torch.stack(coords, -1)
+            on_ring = torch.any((coords == 0) | (coords == R - 1), dim=-1)
+            cell = (_corner_index(torch.clamp(coords, 0, R - 1), R,
+                                  spec.level_sizes[li], D)
+                    + spec.offsets[li])
+            wv = torch.where(on_ring, 0.0, before[-1])
+            v = emb[cell]
+            acc = acc + wv[:, None] * v
+            wn = wn + wv
+            corners.append((fs, before, on_ring, cell, wv, v))
+        gl = g[:, li * F:(li + 1) * F]
+        den = (wn + 1e-9)[:, None]
+        ga = gl / den
+        g_den = _feature_sum(-gl * ((acc / den) / den))
+        rows += [ga * c[4][:, None] for c in corners]
+        idx += [c[3] for c in corners]
+        # autograd's engine takes the later-created corner first
+        gfrac = [None] * D
+        for corner in reversed(range(2 ** D)):
+            fs, before, on_ring, _, _, v = corners[corner]
+            gw = torch.where(on_ring, 0.0, _feature_sum(ga * v) + g_den)
+            for d in reversed(range(D)):
+                gf = gw * before[d]
+                gw = gw * fs[d]
+                term = gf if (corner >> d) & 1 else -gf
+                gfrac[d] = term if gfrac[d] is None else gfrac[d] + term
+        dx_levels.append(torch.stack(gfrac, -1) * (R - 2))
+    return torch.cat(rows), torch.cat(idx), dx_levels
+
+
+def mix_encode_backward_plain(tables, x: torch.Tensor, g: torch.Tensor,
+                              spec: Mix3D2DSpec) -> tuple:
+    """The backward kernel's plain version: tables as ``mix_tables`` gives
+    them, x [N, 3], g [N, output_dim] -> (each encoder's rows, each
+    encoder's idx, as ``grid_encode_backward_plain``; the gradient to x
+    [N, 3]). The gradient to x is summed in the order autograd's engine
+    accumulates it in the eager path (the later-created node first): the
+    planes yz, xz, xy, each plane's levels from the last into its own sum,
+    which then goes into x's; then the 3-D encoder's levels from the
+    last, straight into x's."""
+    col, parts = 0, []
+    for (_, gspec, cols), emb in zip(mix_parts(spec), tables):
+        w = gspec.output_dim
+        parts.append((grid_encode_backward_plain(
+            emb, x[:, list(cols)], g[:, col:col + w], gspec), cols))
+        col += w
+    dx = torch.zeros_like(x)
+    for (_, _, levels), cols in reversed(parts):
+        if cols == (0, 1, 2):
+            for lv in reversed(levels):
+                dx = dx + lv
+        else:
+            total = levels[-1]
+            for lv in reversed(levels[:-1]):
+                total = total + lv
+            full = torch.zeros_like(x)
+            full[:, list(cols)] = total
+            dx = dx + full
+    return ([r for (r, _, _), _ in parts], [i for (_, i, _), _ in parts],
+            dx)
 
 
 def all_grid_params_flat(params: dict) -> torch.Tensor:

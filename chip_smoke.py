@@ -19,7 +19,8 @@ nonzero:
 3. render: ``render_model(mode='eval')`` over 8 frames of
    ``cameras/rotate360.json`` at 512x512, with every launch counter set to
    0 just before and read just after; K1, K3 and K4 must have launched once
-   per frame.
+   per frame, hashgrid_encode twice (the measuring pass decodes each
+   camera too), no backward kernel.
 4. kernels: on one frame's real inputs, K3 (pair expansion) and K4 (slab
    expansion) must equal their plain versions bit for bit, K1 (blend
    forward) within 1e-5 (color, acc, T) and 1e-4 (depth sum), the
@@ -260,6 +261,20 @@ each path and read just after, in each rank.
    ms; the backward's ms against torch's backward of ``x[idx]``
    (``index_put_`` with accumulate) and against ``index_add_`` (atomic),
    and its share of the compacted step.
+33. hashgrid_encode: the hash-grid kernel (``csrc/hashgrid_encode.cu``)
+   on phase 2's scene's 139,264 rows (every anchor slot's x, as the
+   phase-2 decode takes them) at the default spec, with a seeded
+   cotangent: the forward bitwise its plain version (the eager
+   ``mix_encode_plain`` on the card); the backward's rows and indices
+   bitwise its torch twin (``mix_encode_backward_plain`` on the card) and
+   the rows the eager path's autograd hands ``grid_scatter``; the table
+   gradients through ``_MixEncode`` bitwise the eager path's; the gradient
+   to x bitwise the twin, and bitwise the eager path's or within
+   HASHGRID_DX_RTOL of the summed magnitudes of its terms (which of the
+   two is reported); each the same bits twice. Times behind a device-side
+   wait: the forward and the backward kernel, hashgrid_bwd's four calls,
+   the whole ``_MixEncode`` forward and backward, the eager forward and
+   the eager forward and backward, with each kernel's bound.
 
 The line before the last holds every kernel's row (``kernels``: K1, K3 and
 K4 at the render's shapes with their training, post-schedule, decoded,
@@ -269,7 +284,8 @@ and ``cold_start_shape`` (and fit_single_view's and phase 31's under
 ``fit_single_view_shape`` and ``fullscale_short_shape``), K2 at the
 training shape with its schedule, growth, pipeline, fit_single_view and
 fullscale_short shapes, hashgrid_bwd at a phase-2 step's,
-gather_rows_bwd at phase 32's compacted phase-0 step's; K1's
+gather_rows_bwd at phase 32's compacted phase-0 step's, hashgrid_encode
+and hashgrid_encode_bwd at phase 33's; K1's
 and K2's strips of phase 26 at tile 16 under ``strip_shape``,
 ``train_strip_shape`` and ``render_strip_shape``; launches of the
 render, train, schedule, decoded orbit and growth paths, the pipeline,
@@ -429,6 +445,12 @@ COMPACT_LOOP = dict(voxel_size=0.03, use_dpr=True, start_stat=0,
 COMPACT_REPS = 5               # timed steps and backward calls
 COMPACT_TRAINED = ("anchor", "offset", "mask_logit", "feat", "scaling_log")
 RING_GRAD_ATOL, RING_GRAD_RTOL = 3e-5, 2e-4   # atol of each largest
+# phase 33: the hash-grid encoder's kernel on phase 2's scene (139,264
+# rows); the gradient to x within HASHGRID_DX_RTOL of the summed magnitudes
+# of its terms where it is not bitwise the eager path's
+HASHGRID_DX_RTOL = 1e-6
+HASHGRID_REPS = 20             # timed kernel calls
+HASHGRID_PLAIN_REPS = 3        # timed eager calls (~13K launches each)
 
 
 def emit(obj: dict) -> None:
@@ -1460,6 +1482,10 @@ def schedule_phase(model, cams, frames, depths, voxel: float, counters: dict,
         # one backward a phase-2 step for each of the four encoders
         "hashgrid_bwd_four_per_phase2_step": launches["hashgrid_bwd"]
         == 4 * by_phase[2]["steps"],
+        "hashgrid_encode_per_phase2_forward": launches["hashgrid_encode"]
+        == per_forward * by_phase[2]["steps"],
+        "hashgrid_encode_bwd_once_per_phase2_step":
+            launches["hashgrid_encode_bwd"] == by_phase[2]["steps"],
     }
     summary = {
         "steps": len(records), "wall_s": wall, "launches": launches,
@@ -2193,11 +2219,16 @@ def loop_step_ms(chunks: list, graph_log: list, cfg) -> dict:
 
 def graph_checks(graph_log: list, per_forward: int) -> bool:
     """Every captured step holds K2 once, K1, K3 and K4 once a forward,
-    and hashgrid_bwd four times in phase 2 (none before)."""
+    and in phase 2 (none before) hashgrid_encode once a forward,
+    hashgrid_encode_bwd once and hashgrid_bwd four times."""
     return bool(graph_log) and all(
         g["replays"] > 0 and g["launches"]["blend_backward"] == 1
         and all(g["launches"][k] == per_forward for k in FORWARD_KERNELS)
         and g["launches"]["hashgrid_bwd"] == (4 if g["phase"] == 2 else 0)
+        and g["launches"]["hashgrid_encode"]
+        == (per_forward if g["phase"] == 2 else 0)
+        and g["launches"]["hashgrid_encode_bwd"]
+        == (1 if g["phase"] == 2 else 0)
         for g in graph_log)
 
 
@@ -2239,6 +2270,8 @@ def device_loop_phase(model, cams, frames, depths, voxel: float,
             launches[k] == per_forward * n for k in FORWARD_KERNELS),
         "hashgrid_bwd_four_per_phase2_step":
             launches["hashgrid_bwd"] == 4 * p2,
+        "hashgrid_encode_bwd_once_per_phase2_step":
+            launches["hashgrid_encode_bwd"] == p2,
     }
     host = host_summary["step_ms_by_phase"]
     summary = {
@@ -3109,6 +3142,8 @@ def fullscale_short_phase(workdir: str, counters: dict, card: str):
             launches[k] == 2 * steps + frames for k in FORWARD_KERNELS),
         "hashgrid_bwd_four_per_phase2_step":
             launches["hashgrid_bwd"] == 4 * p2,
+        "hashgrid_encode_bwd_once_per_phase2_step":
+            launches["hashgrid_encode_bwd"] == p2,
         "record_launches": rec["launches"] == launches,
     }
     out = {
@@ -3502,6 +3537,209 @@ def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
     return summary, all(checks.values()), row
 
 
+def hashgrid_dx_magnitudes(tables, x, g, spec) -> torch.Tensor:
+    """[N, 3] float64: for each entry of the hash grid's gradient to x the
+    summed magnitudes of the terms whose float32 sums make it: for each
+    encoder, level and corner off the ring, (R - 2) times the product of
+    the weight's other factors times each feature's terms of the corner's
+    ga v and of g acc / den^2 (acc expanded into its corners' w v)."""
+    from bloomscene_tpu_torch.ops.hashgrid import _corner_index, mix_parts
+    mag = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    col = 0
+    for (_, gs, cols), emb in zip(mix_parts(spec), tables):
+        xe = x[:, list(cols)]
+        inb = torch.all((xe >= 0.0) & (xe <= 1.0), dim=-1)
+        D, F = gs.num_dim, gs.n_features
+        for li, R in enumerate(gs.resolutions):
+            gl = torch.where(inb[:, None], g[:, col:col + F], 0.0)
+            gl = gl.double().abs()
+            col += F
+            pos = xe * (R - 2) + 0.5
+            pos0f = torch.floor(pos)
+            frac = (pos - pos0f).double()
+            pos0 = pos0f.to(torch.int64)
+            corners, acc, wn = [], 0.0, 0.0
+            for corner in range(2 ** D):
+                fs, coords = [], []
+                for d in range(D):
+                    up = (corner >> d) & 1
+                    fs.append(frac[:, d] if up else 1.0 - frac[:, d])
+                    coords.append(torch.clamp(pos0[:, d] + up, max=R - 1)
+                                  if up else pos0[:, d])
+                coords = torch.stack(coords, -1)
+                off = ~torch.any((coords == 0) | (coords == R - 1), dim=-1)
+                cell = (_corner_index(torch.clamp(coords, 0, R - 1), R,
+                                      gs.level_sizes[li], D)
+                        + gs.offsets[li])
+                v = emb[cell].double().abs()
+                w = torch.stack(fs, -1).prod(-1) * off
+                acc = acc + w[:, None] * v
+                wn = wn + w
+                corners.append((fs, off, v))
+            den = wn + 1e-9
+            q_term = (gl * acc).sum(-1) / den ** 2
+            for fs, off, v in corners:
+                term = ((gl * v).sum(-1) / den + q_term) * off * (R - 2)
+                for d in range(D):
+                    rest = torch.ones_like(term)
+                    for e in range(D):
+                        if e != d:
+                            rest = rest * fs[e]
+                    mag[:, cols[d]] += term * rest
+    return mag
+
+
+def hashgrid_encode_phase(model, cfg):
+    """Phase 33: the hash-grid kernel on ``model``'s rows (the decode's x of
+    every anchor slot, dead ones included) at the default spec -> (the
+    forward's and the backward's kernel rows, ok)."""
+    from bloomscene_tpu_torch.models.anchors import get_anchor_quantized
+    from bloomscene_tpu_torch.models.model import mix_spec
+    from bloomscene_tpu_torch.ops import hashgrid
+    from bloomscene_tpu_torch.ops.cuda import build
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_bwd import grid_scatter
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_encode import (
+        hashgrid_encode, hashgrid_encode_bwd, hashgrid_encode_plain)
+    spec = mix_spec(cfg)
+    b = model.bounds
+    with torch.no_grad():
+        x = ((get_anchor_quantized(model.state, b) - b.x_min)
+             / (b.x_max - b.x_min)).contiguous()
+        params = {k: v.detach().clone() for k, v in model.grid.items()}
+        tables = hashgrid.mix_tables(params, spec)
+    N, dev = x.shape[0], x.device
+    gen = np.random.default_rng(SEED + 33)
+    g = torch.from_numpy(gen.normal(size=(N, spec.output_dim)).astype(
+        np.float32)).to(dev)
+    checks = {}
+
+    # the forward, bitwise the eager plain version, twice
+    with torch.no_grad():
+        out = hashgrid_encode(x, tables, spec)
+        again = hashgrid_encode(x, tables, spec)
+        plain = hashgrid_encode_plain(x, tables, spec)
+    checks["forward_bitwise_plain"] = torch.equal(out, plain)
+    checks["forward_same_bits_twice"] = torch.equal(out, again)
+    checks["forward_finite"] = bool(torch.isfinite(out).all())
+
+    # the backward: rows, indices and dx against the twin, twice
+    rows, idx, dx = hashgrid_encode_bwd(x, tables, g, spec)
+    rows2, idx2, dx2 = hashgrid_encode_bwd(x, tables, g, spec)
+    t_rows, t_idx, t_dx = hashgrid.mix_encode_backward_plain(tables, x, g,
+                                                             spec)
+    checks["backward_same_bits_twice"] = (
+        all(torch.equal(a, c) for a, c in zip(rows, rows2))
+        and all(torch.equal(a, c) for a, c in zip(idx, idx2))
+        and torch.equal(dx, dx2))
+    checks["rows_idx_bitwise_twin"] = (
+        all(torch.equal(a, c) for a, c in zip(rows, t_rows))
+        and all(torch.equal(a, c) for a, c in zip(idx, t_idx)))
+    checks["dx_bitwise_twin"] = torch.equal(dx, t_dx)
+
+    # the eager path's autograd on the card: the rows it hands grid_scatter,
+    # the table gradients and dx; then the kernel path's (mix_encode on the
+    # card is _MixEncode) from the same leaves
+    def leaves():
+        return (x.clone().requires_grad_(True),
+                {k: v.clone().requires_grad_(True) for k, v in
+                 params.items()})
+
+    def grads(fn):
+        xr, ps = leaves()
+        out_ = fn(ps, xr, spec)
+        return torch.autograd.grad(
+            out_, [xr] + [ps[k] for k in hashgrid.MIX_ENCODERS], g)
+
+    calls, original = [], hashgrid.grid_scatter
+
+    def record(r, i, n):
+        calls.append((r.clone(), i.clone()))
+        return original(r, i, n)
+
+    hashgrid.grid_scatter = record
+    try:
+        eager = grads(hashgrid.mix_encode_plain)
+    finally:
+        hashgrid.grid_scatter = original
+    # autograd reaches the encoders' gathers last to first
+    eager_rows = dict(zip(reversed(hashgrid.MIX_ENCODERS), calls))
+    kernel = grads(hashgrid.mix_encode)
+    kernel2 = grads(hashgrid.mix_encode)
+    checks["rows_idx_bitwise_eager"] = all(
+        torch.equal(rows[e], eager_rows[name][0])
+        and torch.equal(idx[e], eager_rows[name][1])
+        for e, name in enumerate(hashgrid.MIX_ENCODERS))
+    checks["table_grads_bitwise_eager"] = all(
+        torch.equal(a, c) for a, c in zip(kernel[1:], eager[1:]))
+    checks["step_same_bits_twice"] = all(
+        torch.equal(a, c) for a, c in zip(kernel, kernel2))
+    mag = hashgrid_dx_magnitudes(tables, x, g, spec)
+    err = (kernel[0].double() - eager[0].double()).abs()
+    checks["dx_within_tolerance"] = bool(
+        (err <= HASHGRID_DX_RTOL * mag).all())
+    dx_bitwise = torch.equal(kernel[0], eager[0])
+    used = float((err / (HASHGRID_DX_RTOL * mag).clamp(min=1e-300)).max())
+
+    # times, each behind hold_device (device time of calls back to back)
+    scatter = [(r, i, t.shape[0]) for r, i, t in zip(rows, idx, tables)]
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: hashgrid_encode(x, tables, spec),
+                         HASHGRID_REPS)
+        fwd_plain_ms = time_ms(lambda: hashgrid_encode_plain(x, tables, spec),
+                               HASHGRID_PLAIN_REPS)
+    bwd_ms = time_ms(lambda: hashgrid_encode_bwd(x, tables, g, spec),
+                     HASHGRID_REPS)
+    scatter_ms = time_ms(lambda: [grid_scatter(*c) for c in scatter],
+                         HASHGRID_REPS)
+    step_ms = time_ms(lambda: grads(hashgrid.mix_encode), HASHGRID_REPS)
+    plain_step_ms = time_ms(lambda: grads(hashgrid.mix_encode_plain),
+                            HASHGRID_PLAIN_REPS)
+    tab_bytes = sum(t.numel() * 4 for t in tables)
+    n_rows = sum(r.shape[0] for r in rows)
+    n_levels = spec.output_dim // spec.n_features
+    # the forward reads x and the tables and writes out; the backward
+    # reads x, g and the tables and writes the rows, their indices and dx;
+    # operations: ~9 a dimension and level, ~3 + 2F a corner (forward),
+    # ~3 times that with the backward
+    corners = n_rows
+    fwd_ops = corners * (3 + 2 * spec.n_features) + 9 * 3 * n_levels * N
+    fwd_bound = bound(4 * N * (3 + spec.output_dim) + tab_bytes, fwd_ops)
+    bwd_bound = bound(4 * N * (3 + spec.output_dim + 3) + tab_bytes
+                      + n_rows * (4 * spec.n_features + 8), 3 * fwd_ops)
+    card = torch.cuda.get_device_name(0)
+    ptx = ptxas_report(build.build_log("hashgrid_encode"))
+    shapes = {"rows": N, "levels": n_levels, "features": spec.n_features,
+              "corner_rows": n_rows, "table_bytes": tab_bytes,
+              "x_outside_unit_cube": int((~torch.all(
+                  (x >= 0) & (x <= 1), dim=-1)).sum())}
+    common = dict(route="cuda",
+                  source="bloomscene_tpu_torch/csrc/hashgrid_encode.cu",
+                  # no TPU kernel: XLA's fusion of the plain jnp encoder
+                  replaces="bloomscene_tpu/ops/hashgrid.py:105",
+                  library_ms=None, card=card, shapes=shapes, **ptx)
+    fwd_row = dict(name="hashgrid_encode", max_abs_err=max_abs(out, plain),
+                   ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_bound[0],
+                   bound_by=fwd_bound[1], bound_share=fwd_bound[0] / fwd_ms,
+                   **common)
+    bwd_row = dict(name="hashgrid_encode_bwd",
+                   max_abs_err=max(max_abs(a, c) for a, c in
+                                   zip(kernel, eager)),
+                   ms=bwd_ms, plain_ms=plain_step_ms - fwd_plain_ms,
+                   bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                   bound_share=bwd_bound[0] / bwd_ms,
+                   hashgrid_bwd_ms=scatter_ms,
+                   # _MixEncode forward and backward, the table sums
+                   # included, against the eager path's forward and
+                   # autograd backward
+                   step_ms=step_ms, plain_step_ms=plain_step_ms,
+                   dx_bitwise_eager=dx_bitwise,
+                   dx_max_abs_err=max_abs(kernel[0], eager[0]),
+                   dx_max_tolerance_used=used,
+                   dx_rtol_of_magnitudes=HASHGRID_DX_RTOL, checks=checks,
+                   **common)
+    return fwd_row, bwd_row, all(checks.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3560,9 +3798,11 @@ def main() -> int:
     shapes = all(f.shape == (512, 512, 3) and d.shape == (512, 512)
                  for f, d in zip(frames, depths))
     pairs_ok = all(s["num_pairs"] > 0 for s in stats)
-    counts_ok = all(v == (0 if name in ("blend_backward", "hashgrid_bwd",
-                                        "gather_rows_bwd")
-                          else len(frames))
+    # the measuring pass decodes each camera once too (count_pairs)
+    counts_ok = all(v == {"blend_backward": 0, "hashgrid_bwd": 0,
+                          "gather_rows_bwd": 0, "hashgrid_encode_bwd": 0,
+                          "hashgrid_encode": 2 * len(frames)}.get(
+                              name, len(frames))
                     for name, v in launches.items())
     emit({"phase": "render", "frames": len(frames), "fps": fps,
           "card": card, "launches": launches, "finite": finite,
@@ -3903,6 +4143,17 @@ def main() -> int:
         failed.append("compacted_step")
     emit({"phase": "kernel", "at": "compacted_step", "card": card, **cs_row})
 
+    # 33. the hash-grid encoder's kernel, forward and backward, at phase 2's
+    # scene's rows against the eager path and the twin, with its times
+    t0 = time.perf_counter()
+    hge_row, hgb_row, hge_ok = hashgrid_encode_phase(fresh, cfg)
+    for r in (hge_row, hgb_row):
+        emit({"phase": "kernel", "at": "hashgrid_encode", **r})
+    emit({"phase": "hashgrid_encode", "card": card, "ok": hge_ok,
+          "seconds": time.perf_counter() - t0})
+    if not hge_ok:
+        failed.append("hashgrid_encode")
+
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
     for r, t, u, d, g, pp, c, f, fs_r in zip(
@@ -3926,7 +4177,7 @@ def main() -> int:
     rows[2]["train_strip_shape"] = strip_entries["k1_train"]
     row["strip_shape"] = strip_entries["k2_train"]
     row["render_strip_shape"] = strip_entries["k2_render"]
-    rows += [row, hg_row, cs_row]
+    rows += [row, hg_row, cs_row, hge_row, hgb_row]
     # a kernel's launches are those of the main paths: render, train, the
     # schedule, the decoded orbit, the growth run, the CLI's pipeline and
     # its cold start, the device loop (a captured launch counted once a

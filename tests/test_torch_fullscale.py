@@ -77,7 +77,8 @@ def test_run_fullscale_cut_schedule(tmp_path, no_clip):
     assert rec['graphs']['captures'] == 0 and rec['eager_steps'] == 9
     assert set(rec['launches']) == {'pair_expansion', 'slab_expansion',
                                      'blend_forward', 'blend_backward',
-                                     'hashgrid_bwd', 'gather_rows_bwd'}
+                                     'hashgrid_bwd', 'gather_rows_bwd',
+                                     'hashgrid_encode', 'hashgrid_encode_bwd'}
     assert {'generate', 'training', 'compress', 'save_outputs',
             'render_video', 'render_eval'} <= set(rec['stages'])
 

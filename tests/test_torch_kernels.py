@@ -22,6 +22,14 @@ card; the twin within 1e-6 of each cell's summed magnitudes of a float64
 ``index_add_`` on the CPU; bitwise equal to itself from one launch to the
 next.
 
+hashgrid_encode (the hash-grid encoder, forward and backward, no TPU
+counterpart): the forward bitwise its plain version, the backward's rows,
+indices and gradient to x bitwise its torch twin on the card, the tables'
+gradients through ``_MixEncode`` bitwise the eager path's, its gradient to
+x within 1e-6 of the summed magnitudes of its terms of the eager path's
+(tests/test_torch_hashgrid.py holds the twin to autograd on the CPU);
+``encoder_case`` builds its inputs.
+
 gather_rows_bwd (the compacted decode's row-gather backward, no TPU
 counterpart): bitwise against ``chip_smoke.sorted_segment_sum``, a numpy
 twin of its algorithm, on the card, and bitwise equal to itself from one
@@ -354,6 +362,102 @@ def test_hashgrid_bwd_kernel(case):
     plain = grid_scatter_plain(rows.to(dev), idx.to(dev), n_cells).cpu()
     mag = grid_scatter_plain(rows.abs(), idx, n_cells)
     assert bool(((got.cpu() - plain).abs() <= 2e-6 * mag).all())
+
+
+def encoder_case(spec, n: int = 2048, seed: int = 0):
+    """The hash-grid encoder's inputs at ``spec`` (a ``Mix3D2DSpec``):
+    x [n, 3] float32 uniform in [0, 1] but for ~5% of the rows drawn from
+    [-0.5, 1.5]^3 (outside the unit cube for some or all encoders), rows
+    with coordinates exactly 0 and 1, and rows within 0.02 of a face, whose
+    corners lie on the boundary ring at the coarse levels; the four raw
+    tables (flat, uniform in [-2, 2]: binarized to +-1, the straight-through
+    gradient masked where |.| > 1); a cotangent g [n, output_dim] ~ N(0, 1).
+    Numpy arrays."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (n, 3))
+    out = rng.random(n) < 0.05
+    x[out] = rng.uniform(-0.5, 1.5, (int(out.sum()), 3))
+    edges = [(0, 0, 0), (1, 1, 1), (0, 1, 0.5), (1, 0.25, 0), (0.5, 0.5, 1)]
+    x[:min(n, len(edges))] = edges[:n]
+    near = slice(len(edges), min(n, len(edges) + 64))
+    m = x[near].shape[0]
+    x[near] = np.where(rng.random((m, 3)) < 0.5,
+                       rng.uniform(0.0, 0.02, (m, 3)),
+                       rng.uniform(0.98, 1.0, (m, 3)))
+    sizes = {'xyz': spec.spec_xyz.n_params, 'xy': spec.spec_2d.n_params,
+             'xz': spec.spec_2d.n_params, 'yz': spec.spec_2d.n_params}
+    params = {k: rng.uniform(-2, 2, v * spec.n_features).astype(np.float32)
+              for k, v in sizes.items()}
+    g = rng.normal(size=(n, spec.output_dim)).astype(np.float32)
+    return x.astype(np.float32), params, g
+
+
+# (rows, narrow): the default spec at 2,048 rows, one row, and 1,000 (not
+# a multiple of the kernels' 128-thread blocks); narrow tables (three 3-D
+# levels, one dense, at 2^10, one hashed 2-D level at 2^10) at 1,000 and
+# 129 rows
+ENCODER_CASES = ((2048, False), (1, False), (1000, False), (1000, True),
+                 (129, True))
+
+
+def encoder_spec(narrow: bool):
+    from bloomscene_tpu_torch.config import GSConfig
+    from bloomscene_tpu_torch.models.model import mix_spec
+    if narrow:
+        return mix_spec(GSConfig(resolutions_3d=(18, 24, 33),
+                                 log2_hashmap_size_3d=10,
+                                 resolutions_2d=(130,),
+                                 log2_hashmap_size_2d=10))
+    return mix_spec(GSConfig())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,narrow', ENCODER_CASES)
+def test_hashgrid_encode_kernel(n, narrow):
+    """hashgrid_encode's forward bitwise its plain version (the eager code
+    on the card); its backward's rows, indices and gradient to x bitwise
+    the torch twin on the card; both the same bits twice; through
+    ``_MixEncode`` the tables' gradients bitwise autograd's through the
+    eager code and the gradient to x within 1e-6 of the summed magnitudes
+    of its terms; at encoder_case's edges (x 0 and 1, the ring, rows
+    outside the unit cube)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from bloomscene_tpu_torch.ops import hashgrid as th
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_encode import (
+        hashgrid_encode, hashgrid_encode_bwd, hashgrid_encode_plain)
+    from chip_smoke import HASHGRID_DX_RTOL, hashgrid_dx_magnitudes
+    spec = encoder_spec(narrow)
+    dev = torch.device('cuda')
+    x, params, g = encoder_case(spec, n)
+    x, g = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
+    params = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+    tables = th.mix_tables(params, spec)
+    out = hashgrid_encode(x, tables, spec)
+    assert torch.equal(out, hashgrid_encode(x, tables, spec))
+    assert torch.equal(out, hashgrid_encode_plain(x, tables, spec))
+    rows, idx, dx = hashgrid_encode_bwd(x, tables, g, spec)
+    rows2, idx2, dx2 = hashgrid_encode_bwd(x, tables, g, spec)
+    t_rows, t_idx, t_dx = th.mix_encode_backward_plain(tables, x, g, spec)
+    torch.cuda.synchronize()
+    for e in range(4):
+        assert torch.equal(rows[e], rows2[e]) and torch.equal(idx[e], idx2[e])
+        assert torch.equal(rows[e], t_rows[e]) and torch.equal(idx[e],
+                                                               t_idx[e])
+    assert torch.equal(dx, dx2) and torch.equal(dx, t_dx)
+
+    def grads(fn):
+        xr = x.clone().requires_grad_(True)
+        ps = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        return torch.autograd.grad(
+            fn(ps, xr, spec), [xr] + [ps[k] for k in th.MIX_ENCODERS], g)
+
+    kernel, eager = grads(th.mix_encode), grads(th.mix_encode_plain)
+    for a, b in zip(kernel[1:], eager[1:]):
+        assert torch.equal(a, b)
+    mag = hashgrid_dx_magnitudes(tables, x, g, spec)
+    assert bool(((kernel[0].double() - eager[0].double()).abs()
+                 <= HASHGRID_DX_RTOL * mag).all())
 
 
 GATHER_CASES = ('pad0', 'pad1', 'pad2', 'pad1000', 'pad10000', 'last_live',
