@@ -50,13 +50,14 @@
 // default encoders) sit in L2, and a saved corner set would be ~0.5 GB.
 //
 // What bounds it on an H100: bytes. The forward reads x and writes out
-// (4 (3 + L F) bytes a row); its corner reads come from L2. The backward
-// reads x and g and writes the rows, their indices and dx: 12 + 4 L F +
-// 2^d (4 F + 8) a level, 20.05M rows of 24 bytes a full-scale step.
+// (4 (3 + L F) bytes a row); its corner reads (16 bytes each, 20.05M at
+// the full scene's 139,264 rows) come from L2 and L1. The backward reads
+// x and g and writes the rows, their indices and dx: 12 + 4 L F + 2^d
+// (4 F + 8) a level, 20.05M rows of 24 bytes a full-scale step.
 //
-// The mapping. The forward takes a thread a (row, level), the levels of a
-// row on consecutive threads, so a warp writes its rows' features in
-// contiguous 16-byte pieces. The backward takes a thread a row and walks
+// The mapping. The forward takes a block a tile of FWD_ROWS consecutive
+// rows, a warp a level at a time and a lane a row (encode_fwd), in 32-bit
+// index arithmetic. The backward takes a thread a row and walks
 // its levels in the order of the sums above, so dx is summed in one
 // thread in a fixed order with no second pass; a warp's threads are
 // consecutive rows, so each corner's rows are written contiguously.
@@ -67,8 +68,15 @@ namespace {
 constexpr int MAX_LEVELS = 32;
 constexpr int MAX_TABLES = 4;
 constexpr int LEVEL_INTS = 12;     // ints a level in the host's list
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;       // the backward's block
 constexpr int F = 4;               // features a level (HAC's), one float4
+constexpr int FWD_ROWS = 32;       // the forward's rows a block (the lanes)
+constexpr int FWD_WARPS = 6;       // the forward's warps a block
+constexpr int FWD_PAD = 4;         // floats after a staged row (no bank
+                                   // conflicts between the lanes' rows)
+constexpr int FWD_BLOCKS = 4;      // the forward's blocks an SM, at least:
+                                   // left to itself ptxas kept six and
+                                   // spilled
 
 // the hash's prime of dimension d
 __device__ __forceinline__ unsigned prime(int d) {
@@ -175,37 +183,6 @@ __device__ __forceinline__ float corner(const Level& L, const float (&frac)[D],
   return w;
 }
 
-template <int D>
-__device__ __forceinline__ void level_fwd(const Level& L,
-                                          const float* __restrict__ table,
-                                          const float* __restrict__ xr,
-                                          float* __restrict__ out) {
-  float xe[D], frac[D];
-  long long p0[D];
-  const bool inb = encoder_input<D>(L, xr, xe);
-  position<D>(L, xe, frac, p0);
-  float acc[F], wn = 0.0f;
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < (1 << D); ++k) {
-    unsigned cell;
-    bool ring;
-    const float w = corner<D>(L, frac, p0, k, ring, cell);
-    const float wv = ring ? 0.0f : w;
-    float v[F];
-    load_row(table + (size_t)cell * F, v);
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      acc[f] = __fadd_rn(acc[f], __fmul_rn(wv, v[f]));
-    wn = __fadd_rn(wn, wv);
-  }
-  const float den = __fadd_rn(wn, 1e-9f);
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = inb ? __fdiv_rn(acc[f], den) : 0.0f;
-  store_row(out, acc);
-}
-
 // one level of row n's backward: its corners' rows and cells, and its
 // gradient to the encoder's input, gx[0..D)
 template <int D>
@@ -290,18 +267,150 @@ __device__ __forceinline__ void level_bwd(const Level& L,
   for (int d = 0; d < D; ++d) gx[d] = __fmul_rn(gfrac[d], s);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    encode_fwd(const float* __restrict__ x, long long N,
+// the forward's 32-bit position: floor(pos) clamped to [-1, R] before
+// the conversion (for x in [0, 1] it lies in [0, R - 2] and the clamp
+// changes nothing; elsewhere the output is 0 and the clamp keeps every
+// corner's row a row of the table)
+template <int D>
+__device__ __forceinline__ void position32(int res, const float (&xe)[D],
+                                           float (&frac)[D], int (&p0)[D]) {
+  const float s = (float)(res - 2);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float pos = __fadd_rn(__fmul_rn(xe[d], s), 0.5f);
+    const float fl = floorf(pos);
+    frac[d] = __fsub_rn(pos, fl);
+    p0[d] = (int)fminf(fmaxf(fl, -1.0f), (float)res);
+  }
+}
+
+// corner k's weight and row as corner() computes them, in 32 bits: the
+// dense index needs no modulo (it is below R^d <= S), a power-of-two S a
+// mask
+template <int D>
+__device__ __forceinline__ float corner32(int res, int size, int offset,
+                                          bool dense,
+                                          const float (&frac)[D],
+                                          const int (&p0)[D], int k,
+                                          unsigned& cell) {
+  const int top = res - 1;
+  float w = 1.0f;
+  unsigned c = 0, stride = 1;
+  bool ring = false;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    int q;
+    if ((k >> d) & 1) {
+      w = __fmul_rn(w, frac[d]);
+      q = min(p0[d] + 1, top);
+    } else {
+      w = __fmul_rn(w, __fsub_rn(1.0f, frac[d]));
+      q = p0[d];
+    }
+    ring = ring || q == 0 || q == top;
+    const unsigned qc = (unsigned)min(max(q, 0), top);
+    if (dense) {
+      c += qc * stride;
+      stride *= (unsigned)res;
+    } else {
+      c ^= qc * prime(d);
+    }
+  }
+  if (!dense)
+    c = (size & (size - 1)) == 0 ? c & (unsigned)(size - 1)
+                                 : c % (unsigned)size;
+  cell = c + (unsigned)offset;
+  return ring ? 0.0f : w;
+}
+
+// one level of one row, the plain version's operations in its order (the
+// corners' rows loaded first, then added from corner 0 up): the weighted
+// sum, and in den its divisor (the division is left to the store, outside
+// the level loop: __fdiv_rn's slow path is a call, and registers live
+// across it spilled)
+template <int D>
+__device__ __forceinline__ float4 level_fwd32(const Level& L,
+                                              const float* __restrict__ table,
+                                              const float* xr, float& den) {
+  constexpr int NC = 1 << D;
+  const int res = L.res, size = L.size, offset = L.offset;
+  const bool dense = L.dense != 0;
+  float xe[D], frac[D];
+  int p0[D];
+  bool inb = true;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    xe[d] = xr[L.col[d]];
+    inb = inb && xe[d] >= 0.0f && xe[d] <= 1.0f;
+  }
+  position32<D>(res, xe, frac, p0);
+  float wv[NC];
+  float4 v[NC];
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    unsigned cell;
+    wv[k] = corner32<D>(res, size, offset, dense, frac, p0, k, cell);
+    v[k] = __ldg(reinterpret_cast<const float4*>(table) + cell);
+  }
+  float acc[F] = {0.0f, 0.0f, 0.0f, 0.0f}, wn = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    acc[0] = __fadd_rn(acc[0], __fmul_rn(wv[k], v[k].x));
+    acc[1] = __fadd_rn(acc[1], __fmul_rn(wv[k], v[k].y));
+    acc[2] = __fadd_rn(acc[2], __fmul_rn(wv[k], v[k].z));
+    acc[3] = __fadd_rn(acc[3], __fmul_rn(wv[k], v[k].w));
+    wn = __fadd_rn(wn, wv[k]);
+  }
+  // the divisor, or -1 where the output is 0 (wn + 1e-9 is positive)
+  den = inb ? __fadd_rn(wn, 1e-9f) : -1.0f;
+  return make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// a block: FWD_ROWS consecutive rows, every level. Warp w takes levels w,
+// w + FWD_WARPS, ... (with 24 levels, 12 3-D then 12 2-D, each warp two
+// of each), a lane a row, so the level is the warp's own: its descriptor
+// is read once for the warp, 3-D and 2-D never share a warp, and
+// neighbouring rows' corners meet in L1. The rows' features are staged in
+// shared memory and written in coalesced 16-byte stores.
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_BLOCKS)
+    encode_fwd(const float* __restrict__ x, int N,
                const __grid_constant__ Spec S, float* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (t >= N * S.n_levels) return;
-  const long long n = t / S.n_levels;
-  const Level& L = S.lv[t - n * S.n_levels];
-  float* o = out + n * S.out_dim + L.out_col;
-  if (L.dim == 3)
-    level_fwd<3>(L, S.table[L.enc], x + 3 * n, o);
-  else
-    level_fwd<2>(L, S.table[L.enc], x + 3 * n, o);
+  __shared__ float s_x[FWD_ROWS * 3];
+  __shared__ __align__(16) float s_out[FWD_ROWS * (MAX_LEVELS * F + FWD_PAD)];
+  __shared__ float s_den[FWD_ROWS * MAX_LEVELS];
+  const int row0 = blockIdx.x * FWD_ROWS;
+  const int rows = min(FWD_ROWS, N - row0);
+  const int stride = S.out_dim + FWD_PAD;
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x)
+    s_x[i] = x[(size_t)row0 * 3 + i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane < rows) {
+    const float* xr = s_x + 3 * lane;
+    float* o = s_out + lane * stride;
+    for (int l = warp; l < S.n_levels; l += FWD_WARPS) {
+      const Level& L = S.lv[l];
+      const float* table = S.table[L.enc];
+      float den;
+      const float4 r = L.dim == 3 ? level_fwd32<3>(L, table, xr, den)
+                                  : level_fwd32<2>(L, table, xr, den);
+      *reinterpret_cast<float4*>(o + L.out_col) = r;
+      s_den[l * FWD_ROWS + lane] = den;
+    }
+  }
+  __syncthreads();
+  const int per_row = S.out_dim / F;
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)row0 * S.out_dim);
+  for (int q = threadIdx.x; q < rows * per_row; q += blockDim.x) {
+    const int r = q / per_row, c = q - r * per_row;
+    const float4 a = *reinterpret_cast<const float4*>(s_out + r * stride +
+                                                      F * c);
+    const float den = s_den[c * FWD_ROWS + r];
+    dst[q] = den < 0.0f ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                        : make_float4(__fdiv_rn(a.x, den), __fdiv_rn(a.y, den),
+                                      __fdiv_rn(a.z, den),
+                                      __fdiv_rn(a.w, den));
+  }
 }
 
 // dx[j] += gx[d] for each column j = L.col[d] the level reads
@@ -390,9 +499,10 @@ extern "C" int bs_hashgrid_encode(const float* x, long long N,
   const int err = make_spec(tables, n_tables, levels, n_levels, features, S);
   if (err != 0 || N < 0) return err != 0 ? err : (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  const long long threads = N * n_levels;
-  const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-  encode_fwd<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(x, N, S, out);
+  if (N >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((N + FWD_ROWS - 1) / FWD_ROWS);
+  encode_fwd<<<blocks, FWD_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      x, (int)N, S, out);
   return (int)cudaGetLastError();
 }
 

@@ -167,7 +167,7 @@ class AnchorState:
 
 class SortedRowGather(torch.autograd.Function):
     """``x.reshape(C, -1)[idx]`` of each leaf x, with the backward
-    ``gather_rows_bwd``: every leaf's rows summed by ``idx`` in one launch
+    ``gather_rows_bwd``: every leaf's rows summed by ``idx`` in one call
     of the kernel on CUDA tensors, ``index_add_`` on CPU tensors.
 
     The precondition: ``idx`` is nondecreasing and in [0, C). Its only

@@ -240,8 +240,12 @@ each path and read just after, in each rank.
    ``Trainer.run`` at COMPACT_LOOP (phase 0, the bounds refresh, phase 2)
    with the host loop and with the device loop, every counter set to 0
    just before each and read just after: bitwise equal, records included,
-   gather_rows_bwd once a step (once in each captured step) and every
-   kernel launched as often in both. Then one phase-0 and one phase-2 step
+   gather_rows_bwd twice a step (the row gather's backward and the densify
+   statistics; twice in each captured step) and every kernel launched as
+   often in both; both loops again with the statistics through the atomic
+   ``index_add`` (gather_rows_bwd's plain version, the path before the
+   kernel): every leaf, moment and statistic the same bits as the
+   kernel's run of that loop. Then one phase-0 and one phase-2 step
    (``step_gradients``) compacted and dense from the same start with the
    same draws per anchor, at COMPACT_SAME_FN: every alive row's gradient on
    every trained per-anchor leaf equal to the bit but for a zero's sign
@@ -252,15 +256,21 @@ each path and read just after, in each rank.
    CPU on every row whose run is one entry, and on the pad row bitwise
    where the padding's cotangents are zero (else within the rounding of
    two float32 sums of its run). gather_rows_bwd where runs that cross
-   chunks carry values (``crossing_runs``): the main path's index with a
+   pieces carry values (``crossing_runs``): the main path's index with a
    seeded nonzero cotangent on every entry, and with row C - 1 live;
    bitwise its numpy twin, the same bits twice, within (longest run) x
    2^-24 of the summed magnitudes of a float64 ``index_add_``, and with
    row C - 1 live bitwise the CPU's plain version where the padding's
-   cotangents are zero. The compacted and the dense step's device
+   cotangents are zero; the same two cases on the statistics' index,
+   widths and bases (within (longest run + 1) x 2^-24 there). The
+   statistics' scatter of a compacted step (``stats_scatter``): the same
+   bits twice and bitwise the atomic ``index_add``, its ms against that
+   and against the flat ``index_add`` of the path before it. The
+   compacted and the dense step's device ms and ``train.stats`` device
    ms; the backward's ms against torch's backward of ``x[idx]``
    (``index_put_`` with accumulate) and against ``index_add_`` (atomic),
-   and its share of the compacted step.
+   its share of the compacted step, and for reference torch's own fill of
+   its outputs and copy of the padding's cotangents on this card.
 33. hashgrid_encode: the hash-grid kernel (``csrc/hashgrid_encode.cu``)
    on phase 2's scene's 139,264 rows (every anchor slot's x, as the
    phase-2 decode takes them) at the default spec, with a seeded
@@ -284,7 +294,8 @@ and ``cold_start_shape`` (and fit_single_view's and phase 31's under
 ``fit_single_view_shape`` and ``fullscale_short_shape``), K2 at the
 training shape with its schedule, growth, pipeline, fit_single_view and
 fullscale_short shapes, hashgrid_bwd at a phase-2 step's,
-gather_rows_bwd at phase 32's compacted phase-0 step's, hashgrid_encode
+gather_rows_bwd at phase 32's compacted phase-0 step's (the statistics'
+scatter of that step under ``stats_shape``), hashgrid_encode
 and hashgrid_encode_bwd at phase 33's; K1's
 and K2's strips of phase 26 at tile 16 under ``strip_shape``,
 ``train_strip_shape`` and ``render_strip_shape``; launches of the
@@ -573,6 +584,36 @@ def kernel_table(prof) -> list[dict]:
                             "calls": e.count})
     kernels.sort(key=lambda k: -k["device_us"])
     return kernels
+
+
+def span_table(prof, steps: int) -> dict:
+    """Per step, for each span: host ms (its interval on the host) and
+    device busy ms (the kernels that ran inside its device-side interval;
+    the stream runs one kernel at a time)."""
+    import bisect
+    from torch.autograd import DeviceType
+    events = prof.events()
+    kern = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(SPAN_PREFIXES))
+    starts = [k[0] for k in kern]
+    spans: dict[str, dict] = {}
+    for e in events:
+        if not e.name.startswith(SPAN_PREFIXES):
+            continue
+        d = spans.setdefault(e.name, {"host_ms": 0.0, "device_busy_ms": 0.0})
+        a, b = e.time_range.start, e.time_range.end
+        if e.device_type == DeviceType.CPU:
+            d["host_ms"] += (b - a) / 1e3 / steps
+            continue
+        busy = 0
+        for k in range(bisect.bisect_left(starts, a), len(kern)):
+            s0, s1 = kern[k]
+            if s0 >= b:
+                break
+            busy += min(s1, b) - s0
+        d["device_busy_ms"] += busy / 1e3 / steps
+    return spans
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -3171,75 +3212,92 @@ def fullscale_short_phase(workdir: str, counters: dict, card: str):
     return bs, out, all(checks.values())
 
 
-def sorted_segment_sum(g: np.ndarray, idx: np.ndarray, C: int
-                       ) -> np.ndarray:
+def sorted_segment_sum(g: np.ndarray, idx: np.ndarray, C: int,
+                       base: np.ndarray | None = None) -> np.ndarray:
     """numpy twin of csrc/gather_rows_bwd.cu, in float32 and in its order,
-    over the leaves' columns side by side (g [V, K]): zeroed rows; each
-    chunk of CHUNK entries adds each run in entry order from 0, writing it
-    to its row if the run lies in the chunk, else to the chunk's partial
-    (slot 0: it came from the chunk before, slot 1: it goes on); then each
-    crossing run's fragments in chunk order, in GROUPS contiguous shares
-    each from 0, the shares added in order from 0. A partial never written
-    stays NaN."""
-    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import CHUNK, GROUPS
+    over the leaves' columns side by side (g [V, K]; base [C, K], or None
+    for zeros): the entries cut into pieces of PIECE; a row's run inside
+    one piece added in entry order onto its base row; a run that crosses
+    pieces added a piece at a time from 0 (each piece's fragment: slot 0
+    the run that came from the piece before, slot 1 the run that goes on),
+    the fragments in SHARES contiguous shares each from 0, the shares
+    added in order from 0, then that total added onto the base row. Rows
+    no entry names are their base rows. A fragment never written stays
+    NaN."""
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import PIECE, SHARES
     V, K = g.shape
-    out = np.zeros((C, K), np.float32)
-    n_chunks = -(-V // CHUNK)
-    part = np.full((n_chunks, 2, K), np.nan, np.float32)
-    for ch in range(n_chunks):
-        base = ch * CHUNK
-        n = min(CHUNK, V - base)
-        s = np.concatenate([[idx[base - 1] if base else -1],
-                            idx[base:base + n],
-                            [idx[base + n] if base + n < V else -2]])
-        acc = np.zeros(K, np.float32)
-        for i in range(n):
-            r = s[i + 1]
-            acc = acc + g[base + i]
-            if r != s[i + 2] or i == n - 1:
-                from_prev = r == s[0]
-                to_next = i == n - 1 and r == s[n + 1]
-                if not (from_prev or to_next):
-                    out[r] = acc
-                else:
-                    part[ch, 0 if from_prev else 1] = acc
-                acc = np.zeros(K, np.float32)
-    for ch in range(n_chunks - 1):
-        last = ch * CHUNK + CHUNK - 1
-        r = idx[last]
-        if idx[last + 1] != r or (ch > 0 and idx[ch * CHUNK - 1] == r):
-            continue
-        m = (int(np.searchsorted(idx, r, side='right')) - 1) // CHUNK - ch + 1
-        frags = [part[ch, 1]] + [part[ch + t, 0] for t in range(1, m)]
-        per = -(-m // GROUPS)
+    g = g.astype(np.float32)
+    init = (np.zeros((C, K), np.float32) if base is None
+            else np.array(base, np.float32))
+    out = init.copy()
+
+    def in_order(rows, a, b, acc):
+        # acc[q] + g[a[q]] + ... + g[b[q] - 1], one entry at a time
+        for j in range(int((b - a).max(initial=0))):
+            live = a + j < b
+            acc[live] = acc[live] + g[a[live] + j]
+        return acc
+
+    n_pieces = -(-V // PIECE)
+    part = np.full((n_pieces, 2, K), np.nan, np.float32)
+    lo = np.arange(n_pieces) * PIECE
+    hi = np.minimum(lo + PIECE, V)
+    first, last = idx[lo], idx[hi - 1]
+    from_prev = (lo > 0) & (idx[np.maximum(lo - 1, 0)] == first)
+    to_next = (hi < V) & (idx[np.minimum(hi, V - 1)] == last)
+    head_end = np.where(first == last, hi,
+                        np.searchsorted(idx, first + 1, side='left'))
+    head_end = np.minimum(head_end, hi)
+    tail_start = np.maximum(np.searchsorted(idx, last, side='left'), lo)
+    tail = to_next & ~(from_prev & (first == last))
+    for slot, live, a, b in ((0, from_prev, lo, head_end),
+                             (1, tail, tail_start, hi)):
+        q = np.flatnonzero(live)
+        part[q, slot] = in_order(q, a[q], b[q],
+                                 np.zeros((q.size, K), np.float32))
+
+    start = np.searchsorted(idx, np.arange(C + 1), side='left')
+    a, b = start[:-1], start[1:]
+    named = b > a
+    inside = named & (a // PIECE == (b - 1) // PIECE)
+    r = np.flatnonzero(inside)
+    out[r] = in_order(r, a[r], b[r], init[r].copy())
+    for row in np.flatnonzero(named & ~inside):
+        p = a[row] // PIECE
+        m = int((b[row] - 1) // PIECE - p + 1)
+        frags = [part[p, 1]] + [part[p + t, 0] for t in range(1, m)]
+        per = -(-m // SHARES)
         total = np.zeros(K, np.float32)
-        for grp in range(GROUPS):
+        for share in range(SHARES):
             acc = np.zeros(K, np.float32)
-            for t in range(grp * per, min(m, grp * per + per)):
+            for t in range(share * per, min(m, share * per + per)):
                 acc = acc + frags[t]
             total = total + acc
-        out[r] = total
+        out[row] = init[row] + total
     return out
 
 
 def crossing_runs(cot, idx, C: int, n_live: int, longest: int,
-                  pads_zero: bool) -> dict:
-    """gather_rows_bwd on the card where runs that cross chunks carry
-    values, which the main path's cotangents do not (the padding's are
-    zeros, so its run sums to the +0 the outputs were zeroed to):
+                  pads_zero: bool, bases=None) -> dict:
+    """gather_rows_bwd on the card where runs that cross pieces carry
+    values, which the main path's do not (the padding's are zeros, so its
+    run sums to the +0 (or base) it started from):
 
     - nonzero_every_entry: the main path's index, widths and C with a
-      seeded nonzero cotangent on every entry, so the pad row is the sum
-      of run_sums' fragments;
-    - row_c_minus_1_live: the main path's cotangents on its index with the
+      seeded nonzero value on every entry, so the pad row is the sum of
+      run_sums' shares;
+    - row_c_minus_1_live: the main path's values on its index with the
       last live entry moved onto row C - 1, so that row's run is one live
       entry and the padding, and its value comes through run_sums.
 
+    With ``bases`` (the statistics' tables) each case adds onto them.
     Each bitwise its numpy twin (``sorted_segment_sum``) and the same bits
-    from two launches; within (longest run) x 2^-24 of each row's summed
-    magnitudes of a float64 ``index_add_`` (a float32 sum of that many
-    terms in any order rounds within it); row_c_minus_1_live bitwise its
-    plain version on the CPU where the padding's cotangents are zeros."""
+    from two launches; within (terms) x 2^-24 of each row's summed
+    magnitudes (the base's included) of a float64 ``index_add``, terms
+    the longest run, plus one with a base (a float32 sum of that many
+    terms in any order rounds within it);
+    row_c_minus_1_live bitwise its plain version on the CPU where the
+    padding's values are zeros."""
     from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
         gather_rows_bwd, gather_rows_bwd_plain)
     rng = np.random.default_rng(SEED + 13)
@@ -3251,30 +3309,36 @@ def crossing_runs(cot, idx, C: int, n_live: int, longest: int,
         moved = idx.clone()
         moved[n_live - 1] = C - 1
         cases["row_c_minus_1_live"] = (cot, moved)
+    b_cpu = None if bases is None else [b.cpu() for b in bases]
+    terms = longest + (0 if bases is None else 1)
     out = {}
     for case, (g, i) in cases.items():
-        got = gather_rows_bwd(g, i, C)
-        again = gather_rows_bwd(g, i, C)
+        got = gather_rows_bwd(g, i, C, bases)
+        again = gather_rows_bwd(g, i, C, bases)
         g_cpu, i_cpu = [x.cpu() for x in g], i.cpu()
-        twin = np.split(sorted_segment_sum(torch.cat(g_cpu, 1).numpy(),
-                                           i_cpu.numpy(), C),
-                        np.cumsum(widths)[:-1], axis=1)
-        ref = gather_rows_bwd_plain([x.double() for x in g_cpu], i_cpu, C)
+        twin = np.split(sorted_segment_sum(
+            torch.cat(g_cpu, 1).numpy(), i_cpu.numpy(), C,
+            None if b_cpu is None else torch.cat(b_cpu, 1).numpy()),
+            np.cumsum(widths)[:-1], axis=1)
+        b64 = [torch.zeros((C, k), dtype=torch.float64) for k in widths] \
+            if b_cpu is None else [b.double() for b in b_cpu]
+        ref = gather_rows_bwd_plain([x.double() for x in g_cpu], i_cpu, C,
+                                    b64)
         mag = gather_rows_bwd_plain([x.double().abs() for x in g_cpu],
-                                    i_cpu, C)
+                                    i_cpu, C, [b.abs() for b in b64])
         r = {"same_bits_two_launches": all(
                  bit_equal(a, b) for a, b in zip(got, again)),
              "bitwise_twin": all(bit_equal(a.cpu(), torch.from_numpy(t))
                                  for a, t in zip(got, twin)),
              "within_rounding": all(
                  bool(((a.cpu().double() - f).abs()
-                       <= longest * 2.0 ** -24 * m).all())
+                       <= terms * 2.0 ** -24 * m).all())
                  for a, f, m in zip(got, ref, mag)),
              "max_abs_err_float64": max(
                  float((a.cpu().double() - f).abs().max())
                  for a, f in zip(got, ref))}
         if case == "row_c_minus_1_live" and pads_zero:
-            plain = gather_rows_bwd_plain(g_cpu, i_cpu, C)
+            plain = gather_rows_bwd_plain(g_cpu, i_cpu, C, b_cpu)
             r["bitwise_plain"] = all(bit_equal(a.cpu(), b)
                                      for a, b in zip(got, plain))
         out[case] = r
@@ -3329,13 +3393,17 @@ def compacted_grads(start, cfg, intr, view, phase: int, dense_noise):
              for f in COMPACT_TRAINED}, taken[0] if taken else None)
 
 
-def step_device_ms(start, cfg, intr, view) -> float:
+def step_device_ms(start, cfg, intr, view) -> tuple:
     """Device ms of one phase-0 training step (``make_train_step``: the
     forward, backward, Adam update and statistics) on a trainable copy of
     ``start``: the kernels' device time under ``torch.profiler`` over
     COMPACT_REPS steps after one warm-up (an eager step waits for the
     host, so CUDA events around it would time the host too), summed by
-    ``kernel_table`` as profile_render_torch.py's ``device_ms_per_step``."""
+    ``kernel_table`` as profile_render_torch.py's ``device_ms_per_step``
+    -> (that ms, the ``train.stats`` span's device busy ms a step, the
+    statistics' scatter's arguments in the warm-up step: (values, index,
+    rows, bases) as ``accumulate_stats`` hands them to ``gather_rows_bwd``,
+    or None for a dense step)."""
     from torch.profiler import ProfilerActivity, profile
     from bloomscene_tpu_torch.convert import model_to
     from bloomscene_tpu_torch.models import densify
@@ -3351,7 +3419,18 @@ def step_device_ms(start, cfg, intr, view) -> float:
     def run():
         step(model, stats, cam, gt_image, gt_depth, phase=0,
              track_stats=True)
-    run()
+    taken, original = [], densify.gather_rows_bwd
+
+    def record(grads, idx, n_rows, bases=None):
+        taken.append(([g.clone() for g in grads], idx.clone(), n_rows,
+                      [b.clone() for b in bases]))
+        return original(grads, idx, n_rows, bases)
+
+    densify.gather_rows_bwd = record
+    try:
+        run()
+    finally:
+        densify.gather_rows_bwd = original
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3359,7 +3438,61 @@ def step_device_ms(start, cfg, intr, view) -> float:
             run()
         torch.cuda.synchronize()
     us = sum(k["device_us"] for k in kernel_table(prof))
-    return us / 1e3 / COMPACT_REPS
+    stats_ms = span_table(prof, COMPACT_REPS).get(
+        "train.stats", {}).get("device_busy_ms")
+    return us / 1e3 / COMPACT_REPS, stats_ms, (taken[0] if taken else None)
+
+
+def stats_scatter(args) -> tuple:
+    """The statistics' scatter of a compacted step (``step_device_ms``'s
+    capture) through gather_rows_bwd against the atomic ``index_add``
+    path, its plain version (the same bits where each run's entries but
+    one are zeros: every real row once, the padding's values 0), twice,
+    timed, with the bound and the path before this kernel (each
+    statistic's ``index_add`` over ``safe`` K + k, as the JAX package's
+    ``.at[flat_idx].add``) as its library time -> (the kernels line's
+    ``stats_shape`` entry, checks)."""
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
+        gather_rows_bwd, gather_rows_bwd_plain)
+    vals, idx, C, bases = args
+    got = gather_rows_bwd(vals, idx, C, bases)
+    again = gather_rows_bwd(vals, idx, C, bases)
+    plain = gather_rows_bwd_plain(vals, idx, C, bases)
+    pads = idx == C - 1
+    checks = {
+        "stats_same_bits_two_launches": all(
+            bit_equal(a, b) for a, b in zip(got, again)),
+        "stats_bitwise_atomic_index_add": all(
+            bit_equal(a, b) for a, b in zip(got, plain))}
+    widths = [v.shape[1] for v in vals]
+    V, K = idx.shape[0], sum(widths)
+    flat = [idx[:, None] * k + torch.arange(k, device=idx.device)[None]
+            for k in widths]
+
+    def flat_index_add():
+        return [b.reshape(-1).index_add(0, f.reshape(-1), v.reshape(-1))
+                for b, f, v in zip(bases, flat, vals)]
+    ms = time_ms(lambda: gather_rows_bwd(vals, idx, C, bases), COMPACT_REPS)
+    plain_ms = time_ms(lambda: gather_rows_bwd_plain(vals, idx, C, bases),
+                       COMPACT_REPS)
+    lib_ms = time_ms(flat_index_add, COMPACT_REPS)
+    # the index and values read once, every base row read and every
+    # output row written once
+    bound_ms, bound_by = bound(8 * V + 4 * V * K + 8 * C * K, V * K)
+    entry = {"max_abs_err": max(max_abs(a, b) for a, b in zip(got, plain)),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "bound_share": bound_ms / ms,
+             "library_ms": lib_ms,
+             "library": "index_add_ of each statistic over a flat index "
+                        "(atomic; the path before this kernel)",
+             "shapes": {"entries": V, "rows": C, "columns": K,
+                        "leaves": widths,
+                        "pad_row_entries": int(pads.sum()),
+                        # at most one: row C - 1's own entry, if it is live
+                        "pad_row_nonzero_entries": int(torch.stack(
+                            [v[pads].ne(0).any(1) for v in vals]).any(0)
+                            .sum())}}
+    return entry, checks
 
 
 def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
@@ -3369,6 +3502,7 @@ def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
     kernels line's row for gather_rows_bwd)."""
     from bloomscene_tpu_torch.config import GSConfig
     from bloomscene_tpu_torch.convert import model_to
+    from bloomscene_tpu_torch.models import densify
     from bloomscene_tpu_torch.models.decode import draw_noise
     from bloomscene_tpu_torch.ops.cuda import build
     from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
@@ -3396,6 +3530,24 @@ def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
                 for k in host_launches}
     diff = trainer_differences(host, loop)
     rec_diff = record_differences(host_rec, loop_rec)
+    # both loops again with the statistics through the atomic index_add
+    # (gather_rows_bwd's plain version), the path before the kernel: every
+    # leaf, moment and statistic the same bits
+    atomic = {}
+    original = densify.gather_rows_bwd
+    densify.gather_rows_bwd = gather_rows_bwd_plain
+    try:
+        for name in ("host_loop", "device_loop"):
+            tr = Trainer(perturbed(model_to(fresh, dev), SEED), cfg_l, intr,
+                         voxel, seed=SEED, device=device)
+            if name == "host_loop":
+                timed_run(tr, views, n, counters)
+            else:
+                device_loop_run(tr, views, n, counters)
+            atomic[name] = trainer_differences(
+                host if name == "host_loop" else loop, tr)
+    finally:
+        densify.gather_rows_bwd = original
 
     # a compacted step's gradients against the dense step's, phases 0, 2
     same = {}
@@ -3483,11 +3635,27 @@ def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
     lib_ms = time_ms(lambda: [torch.zeros((C, g.shape[1]), device=dev)
                               .index_put_((idx,), g, accumulate=True)
                               for g in cot], COMPACT_REPS)
+    # what this card's memory gives torch's own kernels for the kernel's
+    # two streams: writing the outputs (fill) and moving the padding's
+    # cotangents (a copy reads and writes them)
+    pad_cot = [g[n_live:] for g in cot]
+    fills = [torch.empty_like(a) for a in got]
+    memory_ms = {"fill_outputs": time_ms(lambda: [o.zero_() for o in fills],
+                                         COMPACT_REPS),
+                 "copy_padding": time_ms(lambda: [p.clone() for p in pad_cot],
+                                         COMPACT_REPS),
+                 "output_bytes": 4 * C * sum(g.shape[1] for g in cot),
+                 "padding_bytes": 4 * sum(p.numel() for p in pad_cot)}
     # the index and cotangents read once, every row written once
     bound_ms, bound_by = bound(8 * V + 4 * V * K + 4 * C * K, V * K)
-    compact_ms = step_device_ms(start, cfg_c, intr, views[0])
-    dense_ms = step_device_ms(start, GSConfig(voxel_size=0.03, use_dpr=True),
-                              intr, views[0])
+    compact_ms, compact_stats_ms, scatter = step_device_ms(
+        start, cfg_c, intr, views[0])
+    dense_ms, dense_stats_ms, _ = step_device_ms(
+        start, GSConfig(voxel_size=0.03, use_dpr=True), intr, views[0])
+    stats_entry, stats_checks = stats_scatter(scatter)
+    s_vals, s_idx, _, s_bases = scatter
+    crossing_stats = crossing_runs(s_vals, s_idx, C, n_live, longest,
+                                   pads_zero, s_bases)
     row = dict(
         name="gather_rows_bwd", route="cuda",
         source="bloomscene_tpu_torch/csrc/gather_rows_bwd.cu",
@@ -3498,19 +3666,24 @@ def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
         library="torch's backward of x[idx] (index_put_, accumulate)",
         **ptxas_report(build.build_log("gather_rows_bwd")),
         shapes={"entries": V, "live_entries": n_live, "rows": C,
-                "columns": K, "leaves": widths, "longest_run": longest})
+                "columns": K, "leaves": widths, "longest_run": longest},
+        stats_shape=stats_entry)
 
     loop_ok = {
         "compacts": C > COMPACT_CAPACITY,
         "bitwise_equal_to_host_loop": not diff,
         "records_equal_to_host_loop": not rec_diff,
         "losses_finite": all(np.isfinite(r["loss"]) for r in loop_rec),
+        # the row gather's backward and the statistics (every step is in
+        # the statistics' window: start_stat 0)
         "graphs_hold_the_step_kernels": graph_checks(loop.graph_log, 2)
-        and all(g["launches"]["gather_rows_bwd"] == 1
+        and all(g["launches"]["gather_rows_bwd"] == 2
                 for g in loop.graph_log),
         "launches_as_host_loop": loop_launches_ == host_launches,
-        "gather_rows_bwd_once_per_step":
-            host_launches["gather_rows_bwd"] == n,
+        "gather_rows_bwd_twice_per_step":
+            host_launches["gather_rows_bwd"] == 2 * n,
+        "stats_bitwise_atomic_host_loop": not atomic["host_loop"],
+        "stats_bitwise_atomic_device_loop": not atomic["device_loop"],
         "phases_0_and_2": sorted({c["phase"] for c in loop.chunk_log})
         == [0, 2]}
     checks = {
@@ -3521,17 +3694,28 @@ def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
         **{f"kernel_{k}": v for k, v in kernel.items()
            if k not in ("bitwise_card_plain", "pad_row")},
         **{f"crossing_{case}_{k}": v for case, r in crossing.items()
-           for k, v in r.items() if k != "max_abs_err_float64"}}
+           for k, v in r.items() if k != "max_abs_err_float64"},
+        **{f"crossing_stats_{case}_{k}": v
+           for case, r in crossing_stats.items()
+           for k, v in r.items() if k != "max_abs_err_float64"},
+        **stats_checks}
     summary = {
         "capacity": C, "visible_capacity": COMPACT_CAPACITY, "steps": n,
         "host_loop_wall_s": host_wall, "device_loop_wall_s": loop_wall,
         "chunks": chunks, "graphs": loop.graph_log, "launches": launches,
         "differences": diff, "record_differences": rec_diff[:20],
         "dense_vs_compacted": same, "padding": pads, "kernel": kernel,
-        "crossing_runs": crossing,
+        "crossing_runs": crossing, "crossing_runs_stats": crossing_stats,
+        "atomic_stats_differences": atomic,
         "step_device_ms": {"compacted": compact_ms, "dense": dense_ms},
+        "stats_device_ms": {"compacted": compact_stats_ms,
+                            "dense": dense_stats_ms},
+        "stats_scatter_ms": {"gather_rows_bwd": stats_entry["ms"],
+                             "index_add_": stats_entry["plain_ms"],
+                             "flat_index_add_": stats_entry["library_ms"]},
         "backward_ms": {"gather_rows_bwd": ms, "index_put_accumulate": lib_ms,
                         "index_add_": plain_ms},
+        "memory_reference_ms": memory_ms,
         "backward_share_of_compacted_step": ms / compact_ms,
         "checks": checks}
     return summary, all(checks.values()), row
@@ -3710,6 +3894,9 @@ def hashgrid_encode_phase(model, cfg):
     ptx = ptxas_report(build.build_log("hashgrid_encode"))
     shapes = {"rows": N, "levels": n_levels, "features": spec.n_features,
               "corner_rows": n_rows, "table_bytes": tab_bytes,
+              # the forward's corner reads, served by L2 and L1 (not in
+              # its HBM bound)
+              "corner_read_bytes": n_rows * 4 * spec.n_features,
               "x_outside_unit_cube": int((~torch.all(
                   (x >= 0) & (x <= 1), dim=-1)).sum())}
     common = dict(route="cuda",
@@ -4209,7 +4396,7 @@ def main() -> int:
             "spill_bytes", "train_shape", "schedule_shape", "decoded_shape",
             "growth_shape", "pipeline_shape", "cold_start_shape",
             "fit_single_view_shape", "fullscale_short_shape", "strip_shape",
-            "train_strip_shape", "render_strip_shape")
+            "train_strip_shape", "render_strip_shape", "stats_shape")
     print(card, flush=True)
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     if failed:

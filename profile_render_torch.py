@@ -55,37 +55,7 @@ import time
 
 import torch
 
-from chip_smoke import SPAN_PREFIXES, kernel_table
-
-
-def span_table(prof, steps: int) -> dict:
-    """Per step, for each span: host ms (its interval on the host) and
-    device busy ms (the kernels that ran inside its device-side interval;
-    the stream runs one kernel at a time)."""
-    import bisect
-    from torch.autograd import DeviceType
-    events = prof.events()
-    kern = sorted((e.time_range.start, e.time_range.end) for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith(SPAN_PREFIXES))
-    starts = [k[0] for k in kern]
-    spans: dict[str, dict] = {}
-    for e in events:
-        if not e.name.startswith(SPAN_PREFIXES):
-            continue
-        d = spans.setdefault(e.name, {"host_ms": 0.0, "device_busy_ms": 0.0})
-        a, b = e.time_range.start, e.time_range.end
-        if e.device_type == DeviceType.CPU:
-            d["host_ms"] += (b - a) / 1e3 / steps
-            continue
-        busy = 0
-        for k in range(bisect.bisect_left(starts, a), len(kern)):
-            s0, s1 = kern[k]
-            if s0 >= b:
-                break
-            busy += min(s1, b) - s0
-        d["device_busy_ms"] += busy / 1e3 / steps
-    return spans
+from chip_smoke import kernel_table, span_table
 
 
 def profile_train(steps: int, repo: str, phase: int = 0,

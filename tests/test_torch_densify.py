@@ -14,6 +14,11 @@ Cases: grow and prune with free slots; growth past the capacity (the
 state, statistics and per-anchor moments zero-padded to the next
 capacity bucket); no candidate over the gradient threshold (prune only);
 candidates at non-finite or huge positions, which are dropped.
+
+The statistics' compacted accumulation (``accumulate_stats`` with
+``anchor_idx``: the visible rows, then the padding C) against JAX's
+``.at[].add`` bitwise too, on the tiny scene's capacity, inputs from a
+seed, two views in a row.
 """
 import jax
 import jax.numpy as jnp
@@ -196,3 +201,53 @@ def test_training_step_after_capacity_growth():
             assert p is leaves[name[len('state.'):]], name
             assert p.shape[0] % info['capacity'] == 0
             assert not torch.equal(p.detach(), before[name]), name
+
+
+# (visible anchors, padding entries, whether row C - 1 is visible)
+STATS_CASES = {'padded': (40, 24, False), 'last_row_visible': (40, 24, True),
+               'no_padding': (64, 0, False)}
+
+
+@pytest.mark.parametrize('case', list(STATS_CASES))
+def test_accumulate_stats_compacted_bitwise_jax(case):
+    """The port's compacted ``accumulate_stats`` (on the CPU the plain
+    version of the one-launch scatter: ``index_add`` over the index's rows)
+    bitwise JAX's ``accumulate_stats`` (``.at[safe]`` and ``.at[flat_idx]``
+    adds), two views accumulated in a row from seeded nonzero bases."""
+    n_vis, n_pad, last = STATS_CASES[case]
+    cfg = JaxConfig(**CFG)
+    K = cfg.n_offsets
+    st, _ = init_from_points(points(), n_offsets=K, feat_dim=cfg.feat_dim,
+                             voxel_size=cfg.voxel_size)
+    C = st.capacity
+    rng = np.random.default_rng(list(STATS_CASES).index(case) + 20)
+    base = (rng.uniform(0, 5, C), rng.uniform(0, 9, C),
+            rng.uniform(0, 1, C * K), rng.uniform(0, 9, C * K))
+    jstats = jax_densify.DensifyStats(*(jnp.asarray(b, jnp.float32)
+                                        for b in base))
+    tstats = densify.DensifyStats(*(torch.from_numpy(b.astype(np.float32))
+                                    for b in base))
+    for view in range(2):
+        vis = np.sort(rng.choice(C - 1, n_vis - last, replace=False))
+        if last:
+            vis = np.append(vis, C - 1)
+        idx = np.concatenate([vis, np.full(n_pad, C)]).astype(np.int32)
+        V = idx.size
+        nop = rng.normal(size=V * K).astype(np.float32)
+        cv = rng.uniform(size=V * K) < 0.7
+        sv = rng.uniform(size=V * K) < 0.8
+        av = rng.uniform(size=C) < 0.6
+        g = rng.normal(0, 1e-3, 2 * V * K).astype(np.float32)
+        jstats = jax_densify.accumulate_stats(
+            jstats, jnp.asarray(nop), jnp.asarray(cv), jnp.asarray(sv),
+            jnp.asarray(av), jnp.asarray(g), 64, 48,
+            anchor_idx=jnp.asarray(idx))
+        tstats = densify.accumulate_stats(
+            tstats, torch.from_numpy(nop), torch.from_numpy(cv),
+            torch.from_numpy(sv), torch.from_numpy(av), torch.from_numpy(g),
+            64, 48, anchor_idx=torch.from_numpy(idx))
+        for f, a, b in zip(jstats._fields, tstats, jstats):
+            assert a.shape == b.shape, f
+            np.testing.assert_array_equal(
+                a.numpy().view(np.int32), np.asarray(b).view(np.int32),
+                err_msg=f"{f}, view {view}")

@@ -30,13 +30,16 @@ x within 1e-6 of the summed magnitudes of its terms of the eager path's
 (tests/test_torch_hashgrid.py holds the twin to autograd on the CPU);
 ``encoder_case`` builds its inputs.
 
-gather_rows_bwd (the compacted decode's row-gather backward, no TPU
-counterpart): bitwise against ``chip_smoke.sorted_segment_sum``, a numpy
-twin of its algorithm, on the card, and bitwise equal to itself from one
-launch to the next; the twin within 1e-6 of each row's summed magnitudes of a
+gather_rows_bwd (the compacted decode's row-gather backward and the
+densify statistics' scatter, no TPU counterpart): bitwise against
+``chip_smoke.sorted_segment_sum``, a numpy twin of its algorithm, on the
+card, and bitwise equal to itself from one launch to the next; the twin
+within 1e-6 of each row's summed magnitudes (the base's included) of a
 float64 ``index_add_`` on the CPU, and bitwise the sequential
-``index_add_`` (torch's sum for ``x[idx]``) where every entry of a run
-but one is zero, as the padding's are in a training step.
+``index_add_`` (torch's sum for ``x[idx]``, and ``index_add``'s onto a
+base) where every entry of a run but one is zero, as the padding's are in
+a training step; at the gather's five widths, and at the statistics'
+widths (1, 1, 10 and 10) with and without a base.
 
 ``blend_case`` builds the edge cases' slabs; tests/test_torch_blend_edges.py
 holds the plain versions against the JAX package on the same cases.
@@ -460,13 +463,71 @@ def test_hashgrid_encode_kernel(n, narrow):
                  <= HASHGRID_DX_RTOL * mag).all())
 
 
+# (rows, the column of x outside [0, 1] in some rows, or None): the
+# forward's row tiles of 32 (encode_fwd) cut at 1, 31 and 33 rows, and
+# phase 33's 139,264
+ENCODER_TILE_CASES = ((1, None), (31, None), (33, None), (139264, None),
+                      (33, 0), (1000, 2), (139264, 1))
+
+
+def tiled_encoder_x(n: int, column, seed: int = 3) -> np.ndarray:
+    """x [n, 3] float32 as the decode gives it: uniform in [0, 1], rows
+    sorted as the anchors are (lexicographically); with ``column``, that
+    column of a third of the rows outside [0, 1] (in [-0.5, 0) or (1,
+    1.5], and +-1e10 on a few)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (n, 3))
+    x = x[np.lexsort(x.T[::-1])]
+    if column is not None:
+        out = np.flatnonzero(rng.random(n) < 1 / 3)
+        v = rng.uniform(0.0, 0.5, out.size)
+        x[out, column] = np.where(rng.random(out.size) < 0.5, -v - 1e-3,
+                                  1.0 + v + 1e-3)
+        x[out[:4], column] = [1e10, -1e10, 1e10, -1e10][:out[:4].size]
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,column', ENCODER_TILE_CASES)
+def test_hashgrid_encode_forward_tiles(n, column):
+    """hashgrid_encode's forward at the default spec bitwise its plain
+    version (the eager code on the card) and the same bits twice, where N
+    is not a multiple of the forward's row tile and where x lies outside
+    [0, 1] in one column (those rows' levels that read it 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from bloomscene_tpu_torch.ops import hashgrid as th
+    from bloomscene_tpu_torch.ops.cuda.hashgrid_encode import (
+        hashgrid_encode, hashgrid_encode_plain)
+    spec = encoder_spec(False)
+    dev = torch.device('cuda')
+    _, params, _ = encoder_case(spec, 1)
+    x = torch.from_numpy(tiled_encoder_x(n, column)).to(dev)
+    tables = th.mix_tables({k: torch.from_numpy(v).to(dev)
+                            for k, v in params.items()}, spec)
+    before = hashgrid_encode.launches
+    out = hashgrid_encode(x, tables, spec)
+    again = hashgrid_encode(x, tables, spec)
+    plain = hashgrid_encode_plain(x, tables, spec)
+    torch.cuda.synchronize()
+    assert hashgrid_encode.launches == before + 2
+    assert out.shape == (n, spec.output_dim)
+    assert torch.equal(int_bits(out), int_bits(again))
+    assert torch.equal(int_bits(out), int_bits(plain))
+    if column is not None:
+        outside = ((x[:, column] < 0) | (x[:, column] > 1)).cpu()
+        assert bool(outside.any())
+        # the 3-D levels read every column
+        assert not bool(out[outside.to(dev), :48].any())
+
+
 GATHER_CASES = ('pad0', 'pad1', 'pad2', 'pad1000', 'pad10000', 'last_live',
                 'chunk_edges', 'aligned', 'short')
 GATHER_WIDTHS = (3, 30, 10, 50, 6)   # anchor, offset, mask, feat, scaling
 GATHER_ROWS = 4000
 
 
-def gather_case(case: str, seed: int = 0):
+def gather_case(case: str, seed: int = 0, widths=GATHER_WIDTHS):
     """The row-gather backward's inputs as ``compact_visible`` makes them:
     one cotangent [V, k] float32 a leaf (GATHER_WIDTHS, the five trained
     per-anchor leaves), idx [V] int64 nondecreasing in [0, C), C, and the
@@ -478,11 +539,15 @@ def gather_case(case: str, seed: int = 0):
       entry and the padding;
     - chunk_edges: runs of 1, 255, 256, 257, 511, 2, 513 and 1 entries
       (nonzero cotangents) on sorted rows, crossing and ending at the
-      kernel's chunks of 256 entries;
+      kernel's pieces of 128 entries;
     - aligned: runs of 256, 256, 1, 255 and 256 entries, so runs end and
-      start on chunk boundaries, V a multiple of the chunk;
-    - short: 5 entries, fewer than one chunk, rows unnamed before the
-      first and after the last."""
+      start on piece boundaries, V a multiple of the piece;
+    - short: 5 entries, fewer than one piece, rows unnamed before the
+      first and after the last;
+    - ends: runs of 1 to 300 entries (nonzero) on 60 sorted rows of the
+      middle half, so the first and last quarter of the rows are unnamed.
+
+    ``widths``: one leaf a width."""
     rng = np.random.default_rng(seed)
     C = GATHER_ROWS
     if case.startswith('pad') or case == 'last_live':
@@ -492,6 +557,11 @@ def gather_case(case: str, seed: int = 0):
             vis = np.append(vis, C - 1)
         idx = np.concatenate([vis, np.full(n_pad, C - 1)])
         pad_start = vis.size
+    elif case == 'ends':
+        rows = np.sort(rng.choice(np.arange(C // 4, 3 * C // 4), 60,
+                                  replace=False))
+        idx = np.repeat(rows, rng.integers(1, 301, rows.size))
+        pad_start = idx.size
     else:
         lengths = {'chunk_edges': (1, 255, 256, 257, 511, 2, 513, 1),
                    'aligned': (256, 256, 1, 255, 256),
@@ -501,7 +571,7 @@ def gather_case(case: str, seed: int = 0):
         idx = np.repeat(rows, lengths)
         pad_start = idx.size
     grads = []
-    for k in GATHER_WIDTHS:
+    for k in widths:
         g = rng.normal(size=(idx.size, k)).astype(np.float32)
         g[pad_start:] = 0.0
         grads.append(torch.from_numpy(g))
@@ -576,6 +646,98 @@ def test_gather_rows_bwd_kernel(case):
         mag = gather_rows_bwd_plain([g.abs()], idx, C)[0]
         assert bool(((got[j].cpu() - card_plain[j].cpu()).abs()
                      <= 2e-6 * mag).all())
+
+
+# the statistics' widths (opacity_accum, anchor_demon, offset_grad_accum,
+# offset_denom at 10 offsets): runs of single entries and the padding, the
+# piece edges, rows unnamed at both ends
+STATS_WIDTHS = (1, 1, 10, 10)
+STATS_CASES = ('pad1000', 'last_live', 'chunk_edges', 'aligned', 'short',
+               'ends')
+SINGLE_NONZERO = ('pad1000', 'last_live', 'short')
+
+
+def stats_case(case: str, with_base: bool):
+    """gather_case at STATS_WIDTHS, and (with_base) one seeded base table
+    [C, k] a leaf, nonnegative as the statistics are, else None."""
+    grads, idx, C, pad_start = gather_case(case, 1, STATS_WIDTHS)
+    bases = None
+    if with_base:
+        rng = np.random.default_rng(2)
+        bases = [torch.from_numpy(rng.uniform(0, 9, (C, k)).astype(
+            np.float32)) for k in STATS_WIDTHS]
+    return grads, idx, C, bases
+
+
+@pytest.mark.parametrize('with_base', [False, True])
+@pytest.mark.parametrize('case', STATS_CASES)
+def test_segment_sum_stats_algorithm(case, with_base):
+    """The twin at the statistics' widths, from zeros and onto a base:
+    within 1e-6 of each row's summed magnitudes (the base's included) of a
+    float64 ``index_add``, unnamed rows exactly their base (or 0), and
+    where each run's entries but one are zeros bitwise the CPU wrapper,
+    the sequential ``index_add``."""
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
+        gather_rows_bwd)
+    grads, idx, C, bases = stats_case(case, with_base)
+    base = None if bases is None else torch.cat(bases, 1).numpy()
+    twin = sorted_segment_sum(torch.cat(grads, 1).numpy(), idx.numpy(), C,
+                              base)
+    assert not np.isnan(twin).any()
+    plain = gather_rows_bwd(grads, idx, C, bases)
+    named = np.zeros(C, bool)
+    named[idx.numpy()] = True
+    for j, (got, want, g) in enumerate(zip(
+            split_columns(twin, STATS_WIDTHS), plain, grads)):
+        b = (torch.zeros((C, g.shape[1])) if bases is None
+             else bases[j]).double()
+        ref = b.index_add(0, idx, g.double()).numpy()
+        mag = b.abs().index_add(0, idx, g.double().abs()).numpy()
+        assert np.all(np.abs(got - ref) <= 1e-6 * mag)
+        assert np.array_equal(got[~named], b.numpy()[~named])
+        if case in SINGLE_NONZERO:
+            assert torch.equal(int_bits(torch.from_numpy(got)),
+                               int_bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('with_base', [False, True])
+@pytest.mark.parametrize('case', STATS_CASES)
+def test_segment_sum_stats_kernel(case, with_base):
+    """gather_rows_bwd at the statistics' widths, from zeros and onto a
+    base: bitwise its twin, itself across two launches, and the CPU's
+    sequential ``index_add`` where each run's entries but one are zeros;
+    within 2e-6 of the summed magnitudes of the atomic ``index_add`` on the
+    card; the bases left as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from bloomscene_tpu_torch.ops.cuda.gather_rows_bwd import (
+        gather_rows_bwd, gather_rows_bwd_plain)
+    grads, idx, C, bases = stats_case(case, with_base)
+    dev = torch.device('cuda')
+    g_dev, i_dev = [g.to(dev) for g in grads], idx.to(dev)
+    b_dev = None if bases is None else [b.to(dev) for b in bases]
+    kept = None if bases is None else [b.clone() for b in b_dev]
+    got = gather_rows_bwd(g_dev, i_dev, C, b_dev)
+    again = gather_rows_bwd(g_dev, i_dev, C, b_dev)
+    torch.cuda.synchronize()
+    base = None if bases is None else torch.cat(bases, 1).numpy()
+    twin = split_columns(sorted_segment_sum(
+        torch.cat(grads, 1).numpy(), idx.numpy(), C, base), STATS_WIDTHS)
+    cpu = gather_rows_bwd_plain(grads, idx, C, bases)
+    card_plain = gather_rows_bwd_plain(g_dev, i_dev, C, b_dev)
+    for j, g in enumerate(grads):
+        assert torch.equal(int_bits(got[j]), int_bits(again[j]))
+        assert torch.equal(int_bits(got[j].cpu()),
+                           int_bits(torch.from_numpy(twin[j])))
+        if case in SINGLE_NONZERO:
+            assert torch.equal(int_bits(got[j].cpu()), int_bits(cpu[j]))
+        b = torch.zeros((C, g.shape[1])) if bases is None else bases[j]
+        mag = gather_rows_bwd_plain([g.abs()], idx, C, [b.abs()])[0]
+        assert bool(((got[j].cpu() - card_plain[j].cpu()).abs()
+                     <= 2e-6 * mag).all())
+        if kept is not None:
+            assert torch.equal(b_dev[j], kept[j])
 
 
 def test_cuda_wrapper_without_nvcc_raises(tmp_path, monkeypatch):
