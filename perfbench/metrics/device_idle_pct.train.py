@@ -1,0 +1,9 @@
+"""The share of the traced chunks' time in which no operation ran on the
+card (the profiler's timeline)."""
+
+
+def read(ctx):
+    t = ctx.get("trace")
+    if not t or t["window_s"] <= 0 or t["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
