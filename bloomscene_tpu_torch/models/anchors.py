@@ -21,6 +21,7 @@ import torch
 from ..ops.cuda.gather_rows_bwd import gather_rows_bwd
 from ..ops.knn import knn_mean_sq_dist
 from ..ops.quantization import quantize_anchor
+from ..utils.profiling import span
 
 
 def inverse_sigmoid(x):
@@ -184,9 +185,11 @@ class SortedRowGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         idx, = ctx.saved_tensors
-        sums = gather_rows_bwd([g.contiguous() for g in grads], idx, ctx.C)
-        return (None, None, *(s.reshape(shape)
-                              for s, shape in zip(sums, ctx.shapes)))
+        with span("gather_rows.backward"):
+            sums = gather_rows_bwd([g.contiguous() for g in grads], idx,
+                                   ctx.C)
+            return (None, None, *(s.reshape(shape)
+                                  for s, shape in zip(sums, ctx.shapes)))
 
 
 class AnchorBounds(NamedTuple):

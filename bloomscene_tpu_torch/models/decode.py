@@ -30,7 +30,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..config import GSConfig
 from ..device import strict_fp32
@@ -38,6 +37,7 @@ from ..ops.entropy import entropy_gaussian_bits
 from ..ops.graphics import normalize_quat
 from ..ops.quantization import ste_multistep
 from ..ops.sh import eval_sh, num_sh_coeffs
+from ..utils.profiling import span
 from . import heads as heads_lib
 from .anchors import (get_anchor_quantized, get_mask, get_mask_anchor,
                       get_scaling)
@@ -203,7 +203,7 @@ def _decode(model: Model, cam_center: torch.Tensor, cfg: GSConfig,
         grid_offsets = grid_offsets + noise.offsets * cfg.q_base_offsets
 
     if mode == 'eval' or (train and phase == 2):
-        with record_function("decode.context"):
+        with span("decode.context"):
             ctx = calc_interp_feat(model, anchor, cfg)          # [C, ctx]
             out = heads_lib.apply_grid(model.heads, ctx)
         F = cfg.feat_dim
@@ -222,7 +222,7 @@ def _decode(model: Model, cam_center: torch.Tensor, cfg: GSConfig,
         grid_scaling = grid_scaling + noise.scaling * (q_scaling + 1e-6)
         grid_offsets = (grid_offsets
                         + noise.offsets * (q_offsets + 1e-6)[:, :, None])
-        with record_function("decode.rate"):
+        with span("decode.rate"):
             rate = _rate(cfg, st, visible, noise, rate.mask_anchor_rate,
                          binary_mask, (feat, mean_f, scale_f, q_feat,
                                        feat_mean),

@@ -19,6 +19,7 @@ from ..ops.reference_rasterizer import RenderOutput
 from ..ops.tile_rasterizer import rasterize_tiles
 from ..ops.tiles import TileBins, compute_tile_rects
 from ..scene.cameras import CameraArrays, Intrinsics
+from ..utils.profiling import span
 from .anchors import get_scaling
 from .decode import (DecodedGaussians, DecodeNoise, RateInfo,
                      attribute_means, decode_neural_gaussians)
@@ -136,21 +137,25 @@ def _render(model, intr, cam, cfg, phase, mode, bg, visible, mean2d_offset,
     visible_idx = attr_means = None
     if (visible_capacity is not None and visible is not None
             and model.state.capacity > visible_capacity):
-        if mode == 'eval' or (mode == 'train' and phase == 2):
-            # quantization centers come from the FULL state, so the render
-            # does not depend on the compaction
-            attr_means = attribute_means(model.state)
-        model, visible_idx = compact_visible(model, visible,
-                                             visible_capacity)
+        with span("render.compact"):
+            if mode == 'eval' or (mode == 'train' and phase == 2):
+                # quantization centers come from the FULL state, so the
+                # render does not depend on the compaction
+                attr_means = attribute_means(model.state)
+            model, visible_idx = compact_visible(model, visible,
+                                                 visible_capacity)
         visible = None
-    dec, rate = decode_neural_gaussians(
-        model, cam.camera_center, cfg, phase=phase, mode=mode,
-        visible=visible, noise=noise, attr_means=attr_means)
-    proj = _project(dec.xyz, dec.scaling, dec.rotation, intr, cam)
-    if mean2d_offset is not None:
-        proj = proj._replace(mean2d=proj.mean2d
-                             + mean2d_offset.reshape(-1, 2))
-    proj = proj._replace(valid=proj.valid & dec.valid)
+    with span("render.decode"):
+        dec, rate = decode_neural_gaussians(
+            model, cam.camera_center, cfg, phase=phase, mode=mode,
+            visible=visible, noise=noise, attr_means=attr_means)
+    # the projection here, the binning in rasterize_tiles: render.bin
+    with span("render.bin"):
+        proj = _project(dec.xyz, dec.scaling, dec.rotation, intr, cam)
+        if mean2d_offset is not None:
+            proj = proj._replace(mean2d=proj.mean2d
+                                 + mean2d_offset.reshape(-1, 2))
+        proj = proj._replace(valid=proj.valid & dec.valid)
     out, bins = rasterize_tiles(
         proj, dec.color, dec.opacity, bg, intr.width, intr.height,
         tile=cfg.tile_size,

@@ -13,11 +13,12 @@ def wrappers() -> dict:
     from .hashgrid_bwd import grid_scatter
     from .hashgrid_encode import hashgrid_encode, hashgrid_encode_bwd
     from .pairs import expand_pairs
+    from .stamp import stamp
     return {"pair_expansion": expand_pairs, "slab_expansion": expand_slab,
             "blend_forward": blend_forward, "blend_backward": blend_backward,
             "hashgrid_bwd": grid_scatter, "gather_rows_bwd": gather_rows_bwd,
             "hashgrid_encode": hashgrid_encode,
-            "hashgrid_encode_bwd": hashgrid_encode_bwd}
+            "hashgrid_encode_bwd": hashgrid_encode_bwd, "stamp": stamp}
 
 
 def reset_launch_counts() -> None:

@@ -31,9 +31,9 @@ strip-local partials are never summed across ranks).
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..reference_rasterizer import ACC_GATE, ACC_SEED, RenderOutput
+from ...utils.profiling import span
 from .blend import blend_backward, blend_forward
 
 
@@ -117,6 +117,11 @@ class TileBlend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mean2d, conic, depth, color, opac, bg, bins, geom,
                 group):
+        with span("tile_blend.forward"):
+            return TileBlend._forward(ctx, bg, bins, geom, group)
+
+    @staticmethod
+    def _forward(ctx, bg, bins, geom, group):
         tile, gx, gy, W, H = geom
         counts_p = bins.counts[bins.perm.long()].contiguous()
         p0, n = _strip(bins, group)
@@ -139,22 +144,31 @@ class TileBlend(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_depth, g_alpha, g_final_T):
+        # the saved tensors first: under remat their unpacking runs the
+        # recompute, which is no part of tile_blend.backward
+        saved = ctx.saved_tensors
+        with span("tile_blend.backward"):
+            return TileBlend._backward(ctx, saved, g_color, g_depth, g_alpha,
+                                       g_final_T)
+
+    @staticmethod
+    def _backward(ctx, saved, g_color, g_depth, g_alpha, g_final_T):
         tile, gx, gy, W, H = ctx.geom
         (slab, counts_p, perm, Tf, acc, D, ncon, bg, src_lane, starts,
-         ends) = ctx.saved_tensors
+         ends) = saved
         if src_lane is None:
             raise ValueError("TileBlend gradients need the grad index: bin "
                              "with bin_splats(..., grad_index=True)")
-        with record_function("tile_blend.cotangents"):
+        with span("tile_blend.cotangents"):
             u = cotangent_planes(g_color, g_depth, g_alpha, g_final_T, bg,
                                  acc, D, perm, tile, gx, gy)
-        with record_function("tile_blend.k2"):
+        with span("tile_blend.k2"):
             grad = blend_backward(slab, counts_p, perm, tile, gx, Tf, ncon,
                                   *u, *ctx.strip)
         if ctx.shards > 1:
-            with record_function("tile_blend.gather"):
+            with span("tile_blend.gather"):
                 grad = _gather_columns(ctx.group, grad)
-        with record_function("tile_blend.reduce"):
+        with span("tile_blend.reduce"):
             sums = reduce_entry_grads(grad, src_lane, starts, ends)
             d_bg = torch.stack([torch.sum(Tf * u[0]), torch.sum(Tf * u[1]),
                                 torch.sum(Tf * u[2])])

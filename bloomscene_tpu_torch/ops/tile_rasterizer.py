@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .cuda.wrapper import tile_blend
 from .projection import ProjectedSplats
 from .reference_rasterizer import RenderOutput
@@ -66,7 +67,7 @@ def rasterize_tiles(proj: ProjectedSplats,
     live = (proj.mean2d, proj.conic, proj.depth, colors, opacities, bg)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in live)
     opac_eff = torch.where(proj.valid, opacities, 0.0)
-    with torch.no_grad():
+    with torch.no_grad(), span("render.bin"):
         p_sg = ProjectedSplats(*(t.detach() for t in proj))
         o_sg = opac_eff.detach()
         bins = bin_splats(p_sg, W, H, tile, pair_capacity, tile_capacity,

@@ -43,7 +43,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..config import GSConfig
@@ -56,6 +55,8 @@ from ..models.model import Model
 from ..models.render import prefilter_anchors, render
 from ..ops.cuda import launch_counts
 from ..scene.cameras import CameraArrays, Intrinsics
+from ..utils.profiling import (Spans, StepStamps, covered_ns, fill_dropped,
+                               graph_kernels, idle_stamps, span, step_times)
 from . import losses
 from .optim import Adam, make_trainable
 
@@ -166,22 +167,23 @@ def view_loss(cfg: GSConfig, intr: Intrinsics, bg, model: Model,
                       bg=bg, visible=visible, mean2d_offset=m2d, noise=noise,
                       tile_group=tile_group)
 
-    with torch.enable_grad(), record_function("train.forward"):
+    with torch.enable_grad(), span("train.forward"):
         if cfg.remat:
             # the forward runs twice per step (K1, K3 and K4 launch twice,
-            # K2 once)
+            # K2 once): its spans run again inside train.backward
             res = checkpoint(render_fn, m2d_offset, use_reentrant=False,
                              preserve_rng_state=False)
         else:
             res = render_fn(m2d_offset)
-        loss, aux = compute_losses(res, gt_image, gt_depth, cfg)
+        with span("train.losses"):
+            loss, aux = compute_losses(res, gt_image, gt_depth, cfg)
     return loss, aux, res
 
 
 def _gradients(loss, tensors: list) -> list:
     """d loss / d each of ``tensors`` (zeros where the loss does not reach
     it)."""
-    with torch.enable_grad(), record_function("train.backward"):
+    with torch.enable_grad(), span("train.backward"):
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
     return [torch.zeros_like(t) if g is None else g
             for t, g in zip(tensors, grads)]
@@ -194,7 +196,7 @@ def step_gradients(cfg: GSConfig, intr: Intrinsics, bg, model: Model,
     """The forward and backward of one step -> (visible, loss, aux, res,
     grads, g_m2d): the gradient of the loss for each tensor of ``params``
     (zeros where the loss does not reach it) and for the mean2d offset."""
-    with record_function("train.prefilter"):
+    with span("train.prefilter"):
         visible = prefilter_anchors(model, intr, cam)
     n_child = decoded_rows(model, cfg) * model.state.n_offsets
     m2d_offset = torch.zeros((n_child * 2,), device=visible.device,
@@ -212,7 +214,7 @@ def _update(optimizer: Adam, loss, grads: list, scalars=None):
     """The non-finite skip and one Adam step -> ``ok``: a non-finite loss
     or gradient would poison every parameter through Adam in one step, so
     the gradients are zeroed and Adam still steps (loop.py:136-147)."""
-    with record_function("train.update"):
+    with span("train.update"):
         gsum = sum(torch.sum(torch.abs(g)) for g in grads)
         ok = torch.isfinite(loss) & torch.isfinite(gsum)
         grads = [torch.where(ok, g, 0.0) for g in grads]
@@ -226,9 +228,11 @@ def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
                noise: DecodeNoise | None = None, scalars=None,
                tile_group=None):
     """One SGD step (``_step_core``, loop.py:100-168). Its parts run under
-    ``record_function`` spans (``train.prefilter``, ``train.forward``,
-    ``train.backward``, ``train.update``, ``train.stats``) that a
-    ``torch.profiler`` run reads (``profile_render_torch.py --train``).
+    the program's spans (``utils.profiling.span``: ``train.prefilter``,
+    ``train.forward`` with ``train.losses``, ``train.backward``,
+    ``train.update``, ``train.stats``), which a ``torch.profiler`` run
+    reads (``profile_render_torch.py --train``) and which the device loop
+    stamps on the device.
     ``scalars`` is Adam's row for the step in the device loop
     (``Adam.step``); ``tile_group`` blends tile-parallel."""
     params = [t for _, _, t in optimizer.params]
@@ -238,7 +242,7 @@ def _step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
     ok = _update(optimizer, loss, grads, scalars)
 
     if track_stats:
-        with record_function("train.stats"):
+        with span("train.stats"):
             stats = densify.accumulate_stats(
                 stats, res.dec.neural_opacity.detach(), res.dec.valid,
                 res.proj.valid, visible, g_m2d, intr.width, intr.height,
@@ -327,7 +331,7 @@ def _dp_step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
     # and, with the statistics, its densify inputs
     rows = []
     for (cam, gt_i, gt_d), nz in zip(views, noise):
-        with record_function("train.prefilter"):
+        with span("train.prefilter"):
             vis = prefilter_anchors(model, intr, cam)
         m2d = torch.zeros((n_child * 2,), device=vis.device,
                           requires_grad=True)
@@ -341,8 +345,7 @@ def _dp_step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
                     res.visible_idx]
         rows.append(row)
     if data is not None:
-        with record_function("train.gather"):
-            rows = gather_rows(data, rows)
+        rows = gather_rows(data, rows)
     with torch.no_grad():
         total = rows[0][0]
         for r in rows[1:]:
@@ -354,7 +357,7 @@ def _dp_step_core(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
     ok = _update(optimizer, loss, g_params)
     n_rec = len(StepMetrics._fields)
     if track_stats:
-        with record_function("train.stats"):
+        with span("train.stats"):
             for r in rows:
                 stats = densify.accumulate_stats(
                     stats, *r[n_rec:n_rec + 5], intr.width, intr.height,
@@ -425,6 +428,9 @@ def gather_rows(axis, rows: list) -> list:
 
 # --- the device loop ---------------------------------------------------------
 
+STAMP_SLOTS = 128             # stamps a step can hold (a phase-2 step: ~60)
+
+
 class LoopBuffers(NamedTuple):
     """The static tensors of the device loop, which a captured step reads
     and writes at the step counter."""
@@ -435,6 +441,8 @@ class LoopBuffers(NamedTuple):
     counter: torch.Tensor     # [1] int64: the chunk's step
     scalars: torch.Tensor     # [max_chunk, S] float32: Adam.scalar_table
     metrics: torch.Tensor     # [max_chunk, 13] float64: StepMetrics rows
+    stamps: torch.Tensor      # [max_chunk, STAMP_SLOTS] int64: the steps'
+                              # device stamps (utils.profiling.StepStamps)
 
 
 def stack_views(cameras) -> tuple[CameraArrays, torch.Tensor, torch.Tensor]:
@@ -457,52 +465,65 @@ def loop_buffers(cameras, max_chunk: int, optimizer: Adam) -> LoopBuffers:
         scalars=torch.zeros((max_chunk, len(optimizer.lr) + 4),
                             dtype=torch.float32, device=dev),
         metrics=torch.zeros((max_chunk, len(StepMetrics._fields)),
-                            dtype=torch.float64, device=dev))
+                            dtype=torch.float64, device=dev),
+        stamps=torch.zeros((max_chunk, STAMP_SLOTS), dtype=torch.int64,
+                           device=dev))
 
 
 def loop_step(cfg: GSConfig, intr: Intrinsics, optimizer: Adam, bg,
               generator: torch.Generator, model: Model,
-              stats: DensifyStats, buf: LoopBuffers, phase: int,
-              track_stats: bool) -> None:
+              stats: DensifyStats, buf: LoopBuffers, stamps: StepStamps,
+              phase: int, track_stats: bool) -> None:
     """One step of the device loop (the body of JAX's ``make_train_scan``,
     loop.py:315-324): the step at ``buf.counter`` takes its camera from
     ``buf.cam_idx``, its decode noise from ``generator`` and Adam's scalars
     from ``buf.scalars``; it updates the leaves, the moments and (with
     ``track_stats``) the statistics in place, writes its ``StepMetrics``
-    into its row of ``buf.metrics`` and advances the counter. Nothing in it
-    waits for the host, so a CUDA graph can capture it."""
+    into its row of ``buf.metrics`` and advances the counter. Its spans
+    (all inside ``train.step``) write their stamps into its row of
+    ``buf.stamps`` (``stamps``, over ``buf.stamps`` and ``buf.counter``).
+    Nothing in it waits for the host, so a CUDA graph can capture it."""
     i = buf.counter
-    ci = buf.cam_idx.index_select(0, i)
-    cam = CameraArrays(*(x.index_select(0, ci)[0] for x in buf.cams))
-    noise = (draw_noise(decoded_rows(model, cfg), cfg, phase, generator,
-                        model.state.device) if phase > 0 else None)
-    _, new_stats, metrics = _step_core(
-        cfg, intr, optimizer, bg, model, stats, cam,
-        buf.gt_images.index_select(0, ci)[0],
-        buf.gt_depths.index_select(0, ci)[0], phase, track_stats, noise,
-        scalars=buf.scalars.index_select(0, i)[0])
+    with stamps.step():
+        ci = buf.cam_idx.index_select(0, i)
+        cam = CameraArrays(*(x.index_select(0, ci)[0] for x in buf.cams))
+        noise = (draw_noise(decoded_rows(model, cfg), cfg, phase, generator,
+                            model.state.device) if phase > 0 else None)
+        _, new_stats, metrics = _step_core(
+            cfg, intr, optimizer, bg, model, stats, cam,
+            buf.gt_images.index_select(0, ci)[0],
+            buf.gt_depths.index_select(0, ci)[0], phase, track_stats, noise,
+            scalars=buf.scalars.index_select(0, i)[0])
+        with torch.no_grad():
+            if track_stats:
+                for old, new in zip(stats, new_stats):
+                    old.copy_(new)
+            row = torch.stack([m.to(torch.float64) for m in metrics])
+            buf.metrics.index_copy_(0, i, row[None])
     with torch.no_grad():
-        if track_stats:
-            for old, new in zip(stats, new_stats):
-                old.copy_(new)
-        row = torch.stack([m.to(torch.float64) for m in metrics])
-        buf.metrics.index_copy_(0, i, row[None])
         buf.counter.add_(1)
 
 
 class StepGraph:
-    """One captured step: the graph, and what a report of the device loop
+    """One captured step: the graph, its stamps' slots (``slots``, the
+    capture's ``StepStamps.table``) and which of them it kept (``kept``:
+    the stamps that followed another with no work between left it), and
+    what a report of the device loop
     reads (its phase and track_stats, the eager step it was captured after,
     the host seconds the capture took, each kernel's launches recorded in
-    it, how many times it was replayed, and the device ms of those replays,
-    from CUDA events around each run of replays)."""
+    it, its nodes (``utils.profiling.graph_kernels``: by type, the stamps,
+    and the kernels by span), how many times it was replayed, and the
+    device ms of those replays, from CUDA events around each run of
+    replays)."""
 
     def __init__(self, graph, phase: int, track_stats: bool, step: int,
-                 capture_s: float, launches: dict):
+                 capture_s: float, launches: dict, slots: tuple,
+                 kept: tuple, nodes: dict):
         self.graph = graph
+        self.slots, self.kept = slots, kept
         self.record = dict(phase=phase, track_stats=track_stats, step=step,
                            capture_s=capture_s, launches=launches,
-                           replays=0, replay_ms=0.0)
+                           nodes=nodes, replays=0, replay_ms=0.0)
         self._events = []
 
     def replay(self, n: int) -> None:
@@ -524,14 +545,18 @@ class StepGraph:
 
 
 def capture_train_step(step_fn, generator: torch.Generator, phase: int,
-                       track_stats: bool, step: int) -> StepGraph:
-    """Record ``step_fn`` (a ``loop_step`` with its arguments bound) as a
-    CUDA graph on the current stream, with a memory pool of its own: the
-    port's ``make_train_scan``. ``generator`` (the decode noise's) is
-    registered with the graph, so each replay draws at the generator's
-    offset of the moment and advances it, as an eager step does. A failed
-    capture raises."""
-    graph = torch.cuda.CUDAGraph()
+                       track_stats: bool, step: int,
+                       stamps: StepStamps) -> StepGraph:
+    """Record ``step_fn`` (a ``loop_step`` with its arguments bound, its
+    stamps ``stamps``) as a CUDA graph on the current stream, with a memory
+    pool of its own: the port's ``make_train_scan``. ``generator`` (the
+    decode noise's) is registered with the graph, so each replay draws at
+    the generator's offset of the moment and advances it, as an eager step
+    does. Before the graph is instantiated its nodes are counted and the
+    stamps with no work since the one before them are taken out (each ~2
+    us of the replay's chain). A failed capture raises."""
+    from ..ops.cuda.stamp import drop_stamps, graph_census
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     graph.register_generator_state(generator)
     before = launch_counts()
     t0 = time.perf_counter()
@@ -545,8 +570,47 @@ def capture_train_step(step_fn, generator: torch.Generator, phase: int,
         raise
     graph.capture_end()
     capture_s = time.perf_counter() - t0
+    census = graph_census(graph.raw_cuda_graph())
+    idle = idle_stamps(census)
+    drop_stamps(graph.raw_cuda_graph(), idle, len(stamps.table))
+    nodes = graph_kernels(census, stamps.table, idle)
+    graph.instantiate()
     launches = {k: v - before[k] for k, v in launch_counts().items()}
-    return StepGraph(graph, phase, track_stats, step, capture_s, launches)
+    kept = tuple(s not in idle for s in range(len(stamps.table)))
+    return StepGraph(graph, phase, track_stats, step, capture_s, launches,
+                     stamps.table, kept, nodes)
+
+
+class ChunkStamps(NamedTuple):
+    """A chunk's stamp rows on their way to the host: their slots'
+    ``table`` (the replayed graph's, or the eager step's where none
+    replayed) and which of them the graph kept (``kept``; None: every
+    one), the steps that ran eagerly, the first stamped row (``first``:
+    the replays on the card, every step on the CPU, where each runs
+    eagerly), and ``rows`` (``copied``: a host tensor, pinned on the card,
+    that a copy behind the chunk's end event fills)."""
+    table: tuple
+    kept: tuple | None
+    eager: int
+    first: int
+    rows: torch.Tensor | None = None
+
+    def copied(self, stamps: torch.Tensor) -> ChunkStamps:
+        """With the rows ``stamps`` (the chunk's, on its device) copied."""
+        if stamps.device.type != "cuda":
+            return self._replace(rows=stamps.clone())
+        rows = torch.empty(stamps.shape, dtype=stamps.dtype, pin_memory=True)
+        rows.copy_(stamps, non_blocking=True)
+        return self._replace(rows=rows)
+
+    def read(self) -> np.ndarray:
+        """The copied rows (once the chunk's end event has passed), each
+        column the graph left taking the one before it."""
+        rows = self.rows.numpy()
+        if self.kept is None:
+            return rows
+        return np.concatenate([rows[:self.first],
+                               fill_dropped(rows[self.first:], self.kept)])
 
 
 class ChunkTimer:
@@ -554,14 +618,34 @@ class ChunkTimer:
     its first and last step, phase, track_stats and capacity, the graphs
     captured in it, its eager steps, whether a surgery ended it, its ms
     with that surgery (CUDA events on the current stream on the card; the
-    host's clock on the CPU), and on the card the peak memory allocated in
-    it (``torch.cuda``'s peak statistic, reset when the chunk starts)."""
+    host's clock on the CPU), on the card the peak memory allocated in it
+    (``torch.cuda``'s peak statistic, reset when the chunk starts), and
+    what its device stamps and host spans give (``stamped``, ``placed``):
+
+    - ``span_ms``: each span's device self time, in ms summed over the
+      ``stamped_steps`` (the chunk's replays on the card, every step on
+      the CPU), by the span's path (``utils.profiling.StepStamps``:
+      ``train.step/train.backward/render.decode`` is remat's recompute of
+      the decode);
+    - ``step_gap_ms``: from each stamped step's last stamp to the next
+      one's first, summed;
+    - ``boundary_idle_ms``: from the run's previous chunk's last stamp to
+      this chunk's first (None in a run's first chunk);
+    - ``host_ms``: each host span's self ms in the chunk (``loop.*``), and
+      ``unnamed``: the ms of the boundary that no host span covers;
+    - ``stamps_ns``: the chunk's first and last stamps (the device's
+      clock), and ``clock_offset_ns``: CLOCK_MONOTONIC less that clock,
+      one a run, which places the stamps beside the trainer's ``spans``."""
 
     def __init__(self, device: torch.device, graphs_before: int, **record):
         self.record = dict(record, captures=0, eager_steps=0, surgery=False,
-                           ms=None, peak_mem_bytes=None)
+                           ms=None, peak_mem_bytes=None,
+                           span_ms={}, stamped_steps=0, step_gap_ms=None,
+                           boundary_idle_ms=None, host_ms={},
+                           clock_offset_ns=None, stamps_ns=None)
         self._graphs_before = graphs_before
         self._cuda = device.type == "cuda"
+        self._waited = not self._cuda
         if self._cuda:
             torch.cuda.reset_peak_memory_stats(device)
             self._events = [torch.cuda.Event(enable_timing=True)
@@ -581,10 +665,38 @@ class ChunkTimer:
         else:
             self.record['ms'] = 1e3 * (time.perf_counter() - self._t0)
 
-    def settle(self) -> None:
-        if self._cuda:
+    def wait(self) -> None:
+        """Wait for the chunk's device work (on the card; on the CPU it
+        has run)."""
+        if not self._waited:
             self._events[1].synchronize()
+            self._waited = True
+
+    def settle(self) -> None:
+        self.wait()
+        if self._cuda:
             self.record['ms'] = self._events[0].elapsed_time(self._events[1])
+
+    def stamped(self, rows: np.ndarray, table: tuple, stamped_from: int,
+                prev_last_ns: int | None) -> None:
+        """The chunk's stamp rows (one a step, in order; the stamped steps
+        from ``stamped_from`` on), their slots' ``table`` and the run's
+        previous chunk's last stamp."""
+        t = step_times(rows[stamped_from:], table)
+        first, last = int(rows[0, 0]), int(rows[-1, len(table) - 1])
+        self.record.update(
+            span_ms=t["span_ms"], stamped_steps=t["stamped_steps"],
+            step_gap_ms=t["step_gap_ms"], stamps_ns=[first, last],
+            boundary_idle_ms=(None if prev_last_ns is None
+                              else (first - prev_last_ns) / 1e6))
+
+    def placed(self, offset_ns: int, named_ms: float | None) -> None:
+        """The run's clock offset, and how much of the boundary host spans
+        cover (None without a boundary)."""
+        self.record['clock_offset_ns'] = offset_ns
+        if named_ms is not None:
+            self.record['host_ms']['unnamed'] = max(
+                0.0, self.record['boundary_idle_ms'] - named_ms)
 
 
 class Trainer:
@@ -665,6 +777,8 @@ class Trainer:
         # and the chunks whose ms are not read yet
         self.chunk_log: list[dict] = []
         self._timed_chunks: list = []
+        # the device loop's host spans (loop.*), kept in memory
+        self.spans = Spans()
 
     # --- the trainer checkpoint ---
     def save(self, path: str) -> None:
@@ -856,104 +970,173 @@ class Trainer:
 
     def _run_device_loop(self, cameras, iterations, log_every, callback,
                          max_chunk) -> Model:
-        """The chunked loop (loop.py:590-636)."""
+        """The chunked loop (loop.py:590-636). A chunk with a logged step
+        ends in one read of its metrics rows (``loop.wait``); only such a
+        chunk waits for the device. Each chunk's stamps are copied to the
+        host behind its steps and read at the next such wait (the run's
+        last chunk logs). The host's work between chunks runs under the
+        ``loop.*`` spans of ``self.spans``."""
         cfg = self.cfg
+        spans = self.spans
         buf = loop_buffers(cameras, max_chunk, self.optimizer)
+        stamps = StepStamps(buf.stamps, buf.counter)
+        run = []            # (timer, the wait's return or None) a chunk
+        pending = []        # (timer, its ChunkStamps) not yet read
+        prev_last = None    # the last stamp of the last chunk read
+        first_span = len(spans.records)
         it = self.step + 1
         while it <= iterations:
+            chunk_span = len(spans.records)
             phase = phase_of_step(it, cfg)
             if it == cfg.context_from_step:
-                self.model = self.model._replace(
-                    bounds=update_anchor_bounds(self.model.state))
+                with spans.span("loop.bounds"):
+                    self.model = self.model._replace(
+                        bounds=update_anchor_bounds(self.model.state))
             track = cfg.start_stat < it < cfg.update_until
             e = self._chunk_end(it, iterations, max_chunk)
             timer = ChunkTimer(self.bg.device, first=it, last=e, phase=phase,
                                track_stats=track,
                                capacity=self.model.state.capacity,
                                graphs_before=len(self.graph_log))
-            eager = self._run_chunk(buf, phase, track, e - it + 1,
+            chunk = self._run_chunk(buf, stamps, phase, track, e - it + 1,
                                     len(cameras))
             self.step = e
             info = None
             if self._densify_due(e):
-                self.model, self.stats, info = densify.adjust_anchor(
-                    self.model, self.stats, self.optimizer, cfg,
-                    self.voxel_size, self.densify_rng)
-            timer.stop(len(self.graph_log), eager, surgery=info is not None)
+                with spans.span("loop.surgery"):
+                    self.model, self.stats, info = densify.adjust_anchor(
+                        self.model, self.stats, self.optimizer, cfg,
+                        self.voxel_size, self.densify_rng)
+            timer.stop(len(self.graph_log), chunk.eager,
+                       surgery=info is not None)
             self.chunk_log.append(timer.record)
             self._timed_chunks.append(timer)
+            # after the end event, so that a wait for it does not wait for
+            # the copy too
+            pending.append((timer, chunk.copied(buf.stamps[:e - it + 1])))
             log_its = [s for s in range(it, e + 1)
                        if s % log_every == 0 or s == iterations]
+            waited = None
             if log_its:
-                rows = buf.metrics.cpu().numpy()
-                self._settle()
-                for s in log_its:
-                    self._emit_record(
-                        s, dict(zip(StepMetrics._fields, rows[s - it])),
-                        info if s == e else None, callback)
+                with spans.span("loop.wait"):
+                    timer.wait()
+                    waited = time.perf_counter_ns()
+                    rows = buf.metrics.cpu().numpy()
+                with spans.span("loop.settle"):
+                    self._settle()
+                    for t, c in pending:
+                        t.stamped(c.read(), c.table, c.first, prev_last)
+                        prev_last = t.record['stamps_ns'][1]
+                    pending.clear()
+                with spans.span("loop.records"):
+                    for s in log_its:
+                        self._emit_record(
+                            s, dict(zip(StepMetrics._fields, rows[s - it])),
+                            info if s == e else None, callback)
+            timer.record['host_ms'] = spans.self_ms(chunk_span)
+            run.append((timer, waited))
             it = e + 1
+        self._place(run, first_span)
         return self.model
 
-    def _run_chunk(self, buf: LoopBuffers, phase: int, track: bool, n: int,
-                   n_cams: int) -> int:
+    def _place(self, run: list, first_span: int) -> None:
+        """Put the run's device stamps on CLOCK_MONOTONIC by one offset,
+        the least over its chunks that waited of the moment ``loop.wait``'s
+        wait for the chunk's end event returns less the chunk's last stamp
+        (0 on the CPU), and give each chunk how much of its boundary the
+        run's host spans cover."""
+        if not run:
+            return
+        # the plain stamps read the host's clock
+        offset = (min(w - t.record['stamps_ns'][1] for t, w in run
+                      if w is not None)
+                  if self.bg.device.type == "cuda" else 0)
+        host = [(r.start_ns, r.end_ns) for r in
+                self.spans.records[first_span:] if r.end_ns is not None]
+        prev = None
+        for timer, _ in run:
+            first, last = timer.record['stamps_ns']
+            named = None
+            if prev is not None:
+                named = covered_ns(prev + offset, first + offset, host) / 1e6
+            timer.placed(offset, named)
+            prev = last
+
+    def _run_chunk(self, buf: LoopBuffers, stamps: StepStamps, phase: int,
+                   track: bool, n: int, n_cams: int) -> ChunkStamps:
         """n steps of one phase and track_stats: the camera draws (one
         ``integers`` call a step, as the host loop's) and Adam's scalars
         copied into ``buf`` once, the counter reset, then the steps. On
         the card the first step under a new graph runs eagerly on the side
         stream, the graph is captured there, and it is replayed for the
-        rest; on the CPU every step runs eagerly."""
-        draws = [int(self.rng.integers(n_cams)) for _ in range(n)]
-        buf.cam_idx[:n].copy_(torch.tensor(draws, dtype=torch.int64))
-        buf.scalars[:n].copy_(torch.from_numpy(
-            self.optimizer.scalar_table(n)))
-        buf.counter.zero_()
+        rest; on the CPU every step runs eagerly. -> the chunk's stamps
+        (their rows not yet copied)."""
+        spans = self.spans
+        with spans.span("loop.draws"):
+            draws = [int(self.rng.integers(n_cams)) for _ in range(n)]
+        with spans.span("loop.scalars"):
+            scalars = self.optimizer.scalar_table(n)
+        with spans.span("loop.stage"):
+            buf.cam_idx[:n].copy_(torch.tensor(draws, dtype=torch.int64))
+            buf.scalars[:n].copy_(torch.from_numpy(scalars))
+            buf.counter.zero_()
         step_fn = functools.partial(
             loop_step, self.cfg, self.intr, self.optimizer, self.bg,
-            self.noise_gen, self.model, self.stats, buf, phase, track)
+            self.noise_gen, self.model, self.stats, buf, stamps, phase, track)
         dev = self.bg.device
         if dev.type != "cuda":
-            for _ in range(n):
-                step_fn()
-            eager = n
+            with spans.span("loop.eager"):
+                for _ in range(n):
+                    step_fn()
+            out = ChunkStamps(stamps.table, None, n, 0)
         else:
-            eager = self._replay_chunk(step_fn, buf, phase, track, n)
+            out = self._replay_chunk(step_fn, buf, stamps, phase, track, n)
         self.optimizer.count += n
-        return eager
+        return out
 
-    def _replay_chunk(self, step_fn, buf, phase, track, n) -> int:
-        """The chunk's steps on the card -> how many ran eagerly."""
+    def _replay_chunk(self, step_fn, buf, stamps, phase, track,
+                      n) -> ChunkStamps:
+        """The chunk's steps on the card -> the chunk's stamps."""
         dev = self.bg.device
-        key = self._storage_key(buf)
-        if key != self._graph_key:
-            # the host replaced a tensor that a graph reads (the bounds
-            # refresh, adjust_anchor, restore, a new run's views): drop
-            # every graph, so that their memory pools go with them (the
-            # copies into ``buf`` above waited for their replays)
-            self._settle()
-            self._graphs.clear()
-            self._graph_key = key
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=dev)
-        main = torch.cuda.current_stream(dev)
-        self._stream.wait_stream(main)
-        with torch.cuda.stream(self._stream):
-            graph = self._graphs.get((phase, track))
-            done = 0
-            if graph is None:
-                # the first step under a new graph runs eagerly: it warms
-                # up what a capture needs (kernels, constants, workspaces)
-                step_fn()
-                done = 1
-                if n > 1:
-                    graph = capture_train_step(step_fn, self.noise_gen,
-                                               phase, track, self.step + 1)
-                    self._graphs[phase, track] = graph
-                    self.graph_log.append(graph.record)
-            if n > done:
-                graph.replay(n - done)
-                self._replayed.append(graph)
-        main.wait_stream(self._stream)
-        return done
+        spans = self.spans
+        with spans.span("loop.enqueue"):
+            key = self._storage_key(buf)
+            if key != self._graph_key:
+                # the host replaced a tensor that a graph reads (the bounds
+                # refresh, adjust_anchor, restore, a new run's views): drop
+                # every graph, so that their memory pools go with them (the
+                # copies into ``buf`` above waited for their replays)
+                self._settle()
+                self._graphs.clear()
+                self._graph_key = key
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device=dev)
+            main = torch.cuda.current_stream(dev)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                graph = self._graphs.get((phase, track))
+                done = 0
+                if graph is None:
+                    # the first step under a new graph runs eagerly: it
+                    # warms up what a capture needs (kernels, constants,
+                    # workspaces)
+                    with spans.span("loop.eager"):
+                        step_fn()
+                    done = 1
+                    if n > 1:
+                        with spans.span("loop.capture"):
+                            graph = capture_train_step(
+                                step_fn, self.noise_gen, phase, track,
+                                self.step + 1, stamps)
+                        self._graphs[phase, track] = graph
+                        self.graph_log.append(graph.record)
+                if n > done:
+                    graph.replay(n - done)
+                    self._replayed.append(graph)
+            main.wait_stream(self._stream)
+        if n > done:
+            return ChunkStamps(graph.slots, graph.kept, done, done)
+        return ChunkStamps(stamps.table, None, done, done)
 
     def _settle(self) -> None:
         """Read the ms of the replays and chunks run since the last call
@@ -978,7 +1161,8 @@ class Trainer:
         statistics and the loop's buffers."""
         tensors = [*self._leaves(), *self.optimizer.m, *self.optimizer.v,
                    *self.stats, *buf.cams, buf.gt_images, buf.gt_depths,
-                   buf.cam_idx, buf.counter, buf.scalars, buf.metrics]
+                   buf.cam_idx, buf.counter, buf.scalars, buf.metrics,
+                   buf.stamps]
         return tuple((t.data_ptr(), tuple(t.shape)) for t in tensors)
 
     def _emit_record(self, it, metric_items, info, callback):

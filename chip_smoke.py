@@ -461,6 +461,9 @@ RING_GRAD_ATOL, RING_GRAD_RTOL = 3e-5, 2e-4   # atol of each largest
 # of its terms where it is not bitwise the eager path's
 HASHGRID_DX_RTOL = 1e-6
 HASHGRID_REPS = 20             # timed kernel calls
+STAMP_REPS = 500               # timed stamps, back to back (fewer than
+                               # the launch queue holds)
+STAMP_GRAPH = (64, 50)         # stamps a graph, and its timed replays
 HASHGRID_PLAIN_REPS = 3        # timed eager calls (~13K launches each)
 
 
@@ -563,7 +566,9 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-SPAN_PREFIXES = ("train.", "tile_blend.", "decode.")  # record_function spans
+# the program's spans (utils.profiling.span and Spans: record_functions)
+SPAN_PREFIXES = ("train.", "tile_blend.", "decode.", "render.",
+                 "gather_rows.", "loop.")
 
 
 def kernel_table(prof) -> list[dict]:
@@ -2172,6 +2177,12 @@ def phase2_ab(trainer, views, counters: dict):
     return out, True
 
 
+def same_launches(loop: dict, host: dict) -> bool:
+    """A device-loop run launched each kernel as often as the host loop,
+    the loop's stamps aside (the host loop stamps nothing)."""
+    return all(loop[k] == host[k] for k in host if k != "stamp")
+
+
 def record_differences(a: list, b: list) -> list[str]:
     """``iteration:key`` of every record entry that differs between two
     runs' records (the surgery's wall time aside)."""
@@ -2369,7 +2380,7 @@ def device_loop_growth_phase(model, cams, frames, depths, voxel: float,
         "bitwise_equal_to_host_loop": not diff,
         "records_equal_to_host_loop": not rec_diff,
         "graphs_hold_the_step_kernels": graph_checks(dl.graph_log, 2),
-        "launches_as_host_loop": dl_launches == host_launches,
+        "launches_as_host_loop": same_launches(dl_launches, host_launches),
         "blend_backward_once_per_step": dl_launches["blend_backward"] == n,
     }
     summary = {"anchors_start": base.state.num_alive(),
@@ -2505,7 +2516,8 @@ def fit_phase(workdir: str, counters: dict):
         "render_improves": all(v["l1_after"] < v["l1_before"]
                                for v in out.values()),
         "captured": d["captures"] > 0,
-        "launches_as_host_loop": d["launches"] == h["launches"],
+        "launches_as_host_loop": same_launches(d["launches"],
+                                               h["launches"]),
     }
     trainer, views = trained
     k2_row, k2_ok, fwd_rows, fwd_ok = train_kernel_checks(
@@ -3679,7 +3691,8 @@ def compacted_step_phase(fresh, cams, frames, depths, voxel: float,
         "graphs_hold_the_step_kernels": graph_checks(loop.graph_log, 2)
         and all(g["launches"]["gather_rows_bwd"] == 2
                 for g in loop.graph_log),
-        "launches_as_host_loop": loop_launches_ == host_launches,
+        "launches_as_host_loop": same_launches(loop_launches_,
+                                               host_launches),
         "gather_rows_bwd_twice_per_step":
             host_launches["gather_rows_bwd"] == 2 * n,
         "stats_bitwise_atomic_host_loop": not atomic["host_loop"],
@@ -3927,6 +3940,110 @@ def hashgrid_encode_phase(model, cfg):
     return fwd_row, bwd_row, all(checks.values())
 
 
+def stamp_phase():
+    """Phase 34: the stamp kernel on a ``[LOOP_CHUNK, STAMP_SLOTS]`` card
+    buffer of other values, as the device loop stamps: for rows in range
+    the cell at [counter, slot] alone is written, for rows outside none,
+    the same cells as the plain version writes on the CPU; readings of
+    stamps launched in turn never go back, and the card's time between two
+    of them lies within the host's bracketing readings of them. Then its
+    device time a stamp back to back and a stamp node in a replayed graph,
+    and the timer's least nonzero step -> (its kernel row, ok)."""
+    from bloomscene_tpu_torch.ops.cuda import build
+    from bloomscene_tpu_torch.ops.cuda.stamp import stamp, stamp_plain
+    from bloomscene_tpu_torch.train.loop import STAMP_SLOTS
+    dev = torch.device("cuda")
+    shape = (LOOP_CHUNK, STAMP_SLOTS)
+    gen = torch.Generator().manual_seed(SEED + 34)
+    base = torch.randint(-2 ** 40, 2 ** 40, shape, generator=gen,
+                         dtype=torch.int64)
+
+    def written(fn, device, row: int, slot: int) -> torch.Tensor:
+        buf = base.clone().to(device)
+        counter = torch.full((1,), row, dtype=torch.int64, device=device)
+        fn(buf, counter, slot)
+        return buf.cpu() != base
+
+    checks = {}
+    cases = [(3, 5), (0, 0), (LOOP_CHUNK - 1, STAMP_SLOTS - 1),
+             (LOOP_CHUNK, 7), (-1, 7), (1 << 40, 0)]
+    for row, slot in cases:
+        want = torch.zeros(shape, dtype=torch.bool)
+        if 0 <= row < LOOP_CHUNK:
+            want[row, slot] = True
+        got, plain = written(stamp, dev, row, slot), written(
+            stamp_plain, "cpu", row, slot)
+        checks[f"row_{row}_slot_{slot}"] = (torch.equal(got, want)
+                                            and torch.equal(plain, want))
+
+    # stamps in turn, each bracketed by the host's clock; the counter set
+    # on the card, behind the stream
+    buf = torch.zeros(shape, dtype=torch.int64, device=dev)
+    counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+    counter.fill_(2)
+    host = []
+    for i in range(8):
+        h0 = time.perf_counter_ns()
+        stamp(buf, counter, i)
+        torch.cuda.synchronize()
+        host.append((h0, time.perf_counter_ns()))
+        time.sleep(0.002)
+    t = buf[2, :8].cpu().tolist()
+    checks["never_back"] = all(b >= a for a, b in zip(t, t[1:]))
+    checks["within_host_brackets"] = all(
+        host[j][0] - host[i][1] <= t[j] - t[i] <= host[j][1] - host[i][0]
+        for i in range(8) for j in range(i + 1, 8))
+    checks["other_rows_unwritten"] = bool(
+        (buf[:2] == 0).all() and (buf[3:] == 0).all()
+        and (buf[2, 8:] == 0).all())
+
+    # back to back: device time a stamp
+    ms = time_ms(lambda: stamp(buf, counter, 0), STAMP_REPS)
+    # a graph of stamps in a chain, as the device loop's step holds them;
+    # the timer's resolution: the greatest common divisor of their steps
+    line = torch.zeros((1, STAMP_SLOTS), dtype=torch.int64, device=dev)
+    zero = torch.zeros((1,), dtype=torch.int64, device=dev)
+    n_nodes, reps = STAMP_GRAPH
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        for slot in range(n_nodes):
+            stamp(line, zero, slot)
+        graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    node_ms = start.elapsed_time(end) / (reps * n_nodes)
+    steps = np.diff(line.cpu().numpy()[0, :n_nodes])
+    checks["graph_never_back"] = bool((steps >= 0).all())
+    t0 = time.perf_counter()
+    cpu_buf, cpu_counter = base.clone(), torch.zeros((1,), dtype=torch.int64)
+    for _ in range(STAMP_REPS):
+        stamp_plain(cpu_buf, cpu_counter, 0)
+    plain_ms = 1e3 * (time.perf_counter() - t0) / STAMP_REPS
+    b = bound(16, 0)
+    row = dict(name="stamp", route="cuda",
+               source="bloomscene_tpu_torch/csrc/stamp.cu",
+               # no TPU kernel: the JAX package reads its step's layers
+               # from the XLA profiler's trace
+               replaces=None, max_abs_err=None, ms=ms, plain_ms=plain_ms,
+               bound_ms=b[0], bound_by=b[1], library_ms=None,
+               graph_node_ms=node_ms, graph_nodes=n_nodes,
+               timer_resolution_ns=int(np.gcd.reduce(steps[steps > 0])),
+               card=torch.cuda.get_device_name(0), checks=checks,
+               shapes={"rows": LOOP_CHUNK, "slots": STAMP_SLOTS},
+               **ptxas_report(build.build_log("stamp")))
+    return row, all(checks.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3988,6 +4105,7 @@ def main() -> int:
     # the measuring pass decodes each camera once too (count_pairs)
     counts_ok = all(v == {"blend_backward": 0, "hashgrid_bwd": 0,
                           "gather_rows_bwd": 0, "hashgrid_encode_bwd": 0,
+                          "stamp": 0,
                           "hashgrid_encode": 2 * len(frames)}.get(
                               name, len(frames))
                     for name, v in launches.items())
@@ -4341,6 +4459,16 @@ def main() -> int:
     if not hge_ok:
         failed.append("hashgrid_encode")
 
+    # 34. the stamp kernel: the one cell written, rows outside unwritten,
+    # against its plain version; its times
+    t0 = time.perf_counter()
+    st_row, st_ok = stamp_phase()
+    emit({"phase": "kernel", "at": "stamp", **st_row})
+    emit({"phase": "stamp", "card": card, "ok": st_ok,
+          "seconds": time.perf_counter() - t0})
+    if not st_ok:
+        failed.append("stamp")
+
     shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "shapes")
     for r, t, u, d, g, pp, c, f, fs_r in zip(
@@ -4364,7 +4492,7 @@ def main() -> int:
     rows[2]["train_strip_shape"] = strip_entries["k1_train"]
     row["strip_shape"] = strip_entries["k2_train"]
     row["render_strip_shape"] = strip_entries["k2_render"]
-    rows += [row, hg_row, cs_row, hge_row, hgb_row]
+    rows += [row, hg_row, cs_row, hge_row, hgb_row, st_row]
     # a kernel's launches are those of the main paths: render, train, the
     # schedule, the decoded orbit, the growth run, the CLI's pipeline and
     # its cold start, the device loop (a captured launch counted once a
@@ -4393,7 +4521,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             *(f"launches_{p}" for p in paths),
             "block", "dynamic_smem_bytes", "static_smem_bytes", "registers",
-            "spill_bytes", "train_shape", "schedule_shape", "decoded_shape",
+            "spill_bytes", "graph_node_ms", "timer_resolution_ns",
+            "train_shape", "schedule_shape", "decoded_shape",
             "growth_shape", "pipeline_shape", "cold_start_shape",
             "fit_single_view_shape", "fullscale_short_shape", "strip_shape",
             "train_strip_shape", "render_strip_shape", "stats_shape")

@@ -78,7 +78,21 @@ def test_run_fullscale_cut_schedule(tmp_path, no_clip):
     assert set(rec['launches']) == {'pair_expansion', 'slab_expansion',
                                      'blend_forward', 'blend_backward',
                                      'hashgrid_bwd', 'gather_rows_bwd',
-                                     'hashgrid_encode', 'hashgrid_encode_bwd'}
+                                     'hashgrid_encode', 'hashgrid_encode_bwd',
+                                     'stamp'}
+    # every chunk carries its stamps' span times and its host spans (only
+    # the run's last chunk logs a step at log_every 100, and waits for its
+    # records); the phase-2 decode's context and rate spans, and the
+    # surgeries' spans
+    for c in chunks:
+        assert c['stamped_steps'] == c['last'] - c['first'] + 1
+        assert c['span_ms'] and c['step_gap_ms'] >= 0
+        assert {'loop.scalars', 'loop.eager'} <= set(c['host_ms'])
+        assert ('loop.wait' in c['host_ms']) == (c['last'] == ITERATIONS)
+    assert any(p.endswith('render.decode/decode.context')
+               for c in chunks if c['phase'] == 2 for p in c['span_ms'])
+    assert all('loop.surgery' in c['host_ms'] for c in chunks
+               if c['surgery'])
     assert {'generate', 'training', 'compress', 'save_outputs',
             'render_video', 'render_eval'} <= set(rec['stages'])
 
