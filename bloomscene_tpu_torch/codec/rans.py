@@ -369,6 +369,10 @@ def _gaussian_cdf_q_rows(mean, scale, q, min_v: int, max_v: int,
 # r in powers of two and each group gets a snug shared table instead of
 # the whole stream paying for its widest row
 _BUCKET_EDGES = 2.0 ** np.arange(-1, 13)     # 0.5 .. 4096 -> 15 buckets
+# a run of more symbols than there are probability slots (each takes at
+# least one) cannot be coded: its residuals are stored raw, int32
+# little-endian, and the decoder tells such a run by its header's range
+_RAW_SYMBOLS = _PROB_SCALE
 
 
 def _bucket_ids(scale: np.ndarray, q_arr: np.ndarray) -> np.ndarray:
@@ -441,7 +445,9 @@ def encode_gaussian(x, mean, scale, q, native: bool = True) -> bytes:
       ITS residual range.
 
     Blob layout: u8 bucket count, then per bucket {i32 min, i32 max,
-    u32 nbytes}, then the concatenated per-bucket rANS streams.
+    u32 nbytes}, then the concatenated per-bucket rANS streams (a bucket
+    whose range spans _RAW_SYMBOLS symbols or more, which no 16-bit
+    table can hold, stores its residuals as raw int32 instead).
     """
     x = np.asarray(x, np.float64).ravel()
     q_arr = np.ascontiguousarray(
@@ -463,9 +469,12 @@ def encode_gaussian(x, mean, scale, q, native: bool = True) -> bytes:
             continue
         s = sym_val[sel]
         min_v, max_v = int(s.min()), int(s.max())
-        data = _encode_gauss_run((s - min_v).astype(np.int32),
-                                 mean_eff[sel], scale[sel], q_arr[sel],
-                                 min_v, max_v, native)
+        if max_v - min_v + 1 >= _RAW_SYMBOLS:
+            data = (s - min_v).astype('<i4').tobytes()
+        else:
+            data = _encode_gauss_run((s - min_v).astype(np.int32),
+                                     mean_eff[sel], scale[sel], q_arr[sel],
+                                     min_v, max_v, native)
         header.append(struct.pack('<iiI', min_v, max_v, len(data)))
         streams.append(data)
     return b''.join(header) + b''.join(streams)
@@ -497,9 +506,13 @@ def decode_gaussian(data: bytes, mean, scale, q,
         if sel.size == 0:
             pos += nbytes
             continue
-        sym = _decode_gauss_run(data[pos:pos + nbytes], mean_eff[sel],
-                                scale[sel], q_arr[sel], min_v, max_v,
-                                native).astype(np.int64) + min_v
+        if max_v - min_v + 1 >= _RAW_SYMBOLS:
+            sym = np.frombuffer(data, '<i4', sel.size, pos).astype(
+                np.int64) + min_v
+        else:
+            sym = _decode_gauss_run(data[pos:pos + nbytes], mean_eff[sel],
+                                    scale[sel], q_arr[sel], min_v, max_v,
+                                    native).astype(np.int64) + min_v
         out[sel] = (sym.astype(np.float64) + center[sel]) * q_arr[sel]
         pos += nbytes
     return out

@@ -8,6 +8,7 @@ def wrappers() -> dict:
     """Each kernel's wrapper by the kernel's name; a wrapper counts its
     launches in ``launches``."""
     from .blend import blend_backward, blend_forward
+    from .emission_sums import emission_sums
     from .expand import expand_slab
     from .gather_rows_bwd import gather_rows_bwd
     from .hashgrid_bwd import grid_scatter
@@ -18,7 +19,8 @@ def wrappers() -> dict:
             "blend_forward": blend_forward, "blend_backward": blend_backward,
             "hashgrid_bwd": grid_scatter, "gather_rows_bwd": gather_rows_bwd,
             "hashgrid_encode": hashgrid_encode,
-            "hashgrid_encode_bwd": hashgrid_encode_bwd, "stamp": stamp}
+            "hashgrid_encode_bwd": hashgrid_encode_bwd, "stamp": stamp,
+            "emission_sums": emission_sums}
 
 
 def reset_launch_counts() -> None:

@@ -21,7 +21,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 KERNELS = ("pairs", "expand", "blend", "blend_bwd", "hashgrid_bwd",
-           "gather_rows_bwd", "hashgrid_encode", "stamp")
+           "gather_rows_bwd", "hashgrid_encode", "stamp", "emission_sums")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

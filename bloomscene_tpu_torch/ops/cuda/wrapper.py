@@ -7,11 +7,12 @@ per occupancy-sorted tile position; they are un-permuted, assembled into
 Backward (``_bwd``, :97-188): the image cotangents go to position space as
 the 5-channel algebra (r, g, b, depth value, ones) plus the background
 term, K2 writes per-entry gradients [10, cap, T], and the emission-order
-reduction turns them into per-Gaussian gradients without a scatter: one
-clamped gather into emission order with the dead lanes masked, an
-inclusive and an exclusive cumsum, and the difference at each Gaussian's
-emission range. The reduction is plain torch, as it is plain XLA outside
-the Pallas kernel.
+reduction turns them into per-Gaussian gradients without a scatter: each
+Gaussian's live entries summed over its contiguous emission range. The
+JAX package does that in plain XLA outside the Pallas kernel (a gather,
+two cumsums and their difference); here it is a kernel of its own on the
+card (``emission_sums``, ``csrc/emission_sums.cu``), a plain segmented sum
+on the CPU.
 
 The slab, the bins and the residuals carry no gradient; gradients reach
 mean2d, conic, depth, color, opacity and bg only through ``TileBlend``.
@@ -25,8 +26,8 @@ computes the cotangent planes, K2 runs on its strip, the [10, cap, T / S]
 strips are all-gathered and every rank runs the reduction. Since a tile's
 K1 and K2 read no other tile, the gathered planes and gradients are the
 single call's bit for bit, and so are the image and the per-Gaussian
-gradients (the cumsum-difference reduction is not additive in float, so
-strip-local partials are never summed across ranks).
+gradients (sums in float are not additive, so strip-local partials are
+never summed across ranks).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 from ..reference_rasterizer import ACC_GATE, ACC_SEED, RenderOutput
 from ...utils.profiling import span
 from .blend import blend_backward, blend_forward
+from .emission_sums import emission_sums
 
 
 def _assemble(planes: torch.Tensor, pos: torch.Tensor, bg: torch.Tensor,
@@ -76,22 +78,8 @@ def reduce_entry_grads(grad: torch.Tensor, src_lane: torch.Tensor,
                        ends_by_id: torch.Tensor) -> torch.Tensor:
     """Per-entry gradients [10, cap, T] -> per-Gaussian sums [10, n] in
     emission order (wrapper.py:146-172). Culled, truncated and
-    over-capacity pairs carry the lane cap*T: gathered clamped, then
-    masked."""
-    n_lanes = grad.shape[1] * grad.shape[2]
-    flat = grad.reshape(grad.shape[0], n_lanes)
-    dead = src_lane >= n_lanes
-    pg = torch.index_select(flat, 1, torch.clamp(src_lane,
-                                                 max=n_lanes - 1).long())
-    pg = torch.where(dead[None, :], 0.0, pg)
-    inc = torch.cumsum(pg, 1)
-    exc = inc - pg
-    pc = src_lane.shape[0]
-    s = torch.clamp(starts_by_id, max=pc).long()
-    e = torch.clamp(ends_by_id, max=pc).long()
-    return torch.where((e > s)[None, :],
-                       inc[:, torch.clamp(e - 1, min=0)]
-                       - exc[:, torch.clamp(s, max=pc - 1)], 0.0)
+    over-capacity pairs carry the lane cap*T and add nothing."""
+    return emission_sums(grad, src_lane, starts_by_id, ends_by_id)
 
 
 def _strip(bins, group) -> tuple[int, int]:

@@ -39,10 +39,11 @@ nonzero:
    orbit frames of phase 3 and their depths, at
    ``GSConfig(voxel_size=0.03, use_dpr=True, start_stat=0)`` (phase 0,
    remat on, no densification step due). Every counter is set to 0 just
-   before and read just after: K2 must launch once per step, K1, K3 and K4
-   once per forward (twice per step under remat). One line per step, one
-   summary line; losses must be finite, no update skipped, and the mean
-   loss of the last 5 steps below that of the first 5.
+   before and read just after: K2 and emission_sums must launch once per
+   step, K1, K3 and K4 once per forward (twice per step under remat). One
+   line per step, one summary line; losses must be finite, no update
+   skipped, and the mean loss of the last 5 steps below that of the first
+   5.
 8. kernels at the training shapes, on one training step's real inputs
    (pair capacity 2,097,152, where K3 writes the two-key form): K3, K4 and
    K1 against their plain versions as in phase 4; K2 (blend backward)
@@ -50,7 +51,11 @@ nonzero:
    cotangent planes scaled by H * W * 3 (K2 is linear in them) and the
    rtol applied to the magnitudes of each entry's pixel terms; most
    entries of every gradient row resolved, planted faults caught, and
-   bitwise equal to itself from one launch to the next.
+   bitwise equal to itself from one launch to the next. Then the
+   emission-order reduction (``emission_sums``) on that step's K2 output:
+   bitwise its twin on the CPU and equal to itself, within its rounding
+   bound of a float64 sum; the plain version's gaps (the cumsum
+   difference) to that float64 sum beside the kernel's.
 9. phase2_grad_reference: at 128x128, one phase-2 training step (the
    hash-grid context, the adaptive noise, the rate) on copies of the
    untrained model, DETERMINISM_RUNS times on the card and once by the
@@ -1019,6 +1024,8 @@ def train_phase(model, cams, frames, depths, voxel: float, counters: dict,
         "loss_falls": float(np.mean(losses[-5:])) < float(np.mean(losses[:5])),
         "blend_backward_once_per_step":
             launches["blend_backward"] == TRAIN_STEPS,
+        "emission_sums_once_per_step":
+            launches["emission_sums"] == TRAIN_STEPS,
         "forward_kernels_once_per_forward": all(
             launches[k] == per_forward * TRAIN_STEPS
             for k in ("pair_expansion", "slab_expansion", "blend_forward")),
@@ -1167,6 +1174,128 @@ def train_kernel_checks(trainer, cfg, views, phase: int = 0):
                 "sum_walk": int(walk.sum()),
                 "sum_n_contrib": int(ncon.sum())})
     return row, k2_ok, fwd_rows, fwd_ok
+
+
+def emission_sums_twin(grad, src_lane, starts_by_id, ends_by_id,
+                       warp_range: int):
+    """A torch twin of ``csrc/emission_sums.cu``'s order of additions: a
+    range of at most ``warp_range`` slots added in slot order from 0
+    (``index_add_``'s sequential order on the CPU); a longer one by 32
+    lanes, lane l adding slots l, l + 32, ... from 0, the lanes' partials
+    then combined by the butterfly p[l] + p[l ^ off], off = 16, 8, 4, 2, 1.
+    On CPU tensors the kernel's bits."""
+    C, n = grad.shape[0], starts_by_id.shape[0]
+    n_lanes = grad.shape[1] * grad.shape[2]
+    flat = grad.reshape(C, n_lanes)
+    length, _ = range_lengths(src_lane, starts_by_id, ends_by_id)
+    s = torch.clamp(starts_by_id, max=src_lane.shape[0]).long()
+    owner = torch.repeat_interleave(torch.arange(n), length)
+    pos = torch.arange(owner.numel()) - (torch.cumsum(length, 0)
+                                         - length)[owner]
+    lane = src_lane[s[owner] + pos].long()
+    wide = length[owner] > warp_range
+    live = lane < n_lanes
+    # one bucket a short range, 32 a long one (its lanes)
+    wide_ids = torch.nonzero(length > warp_range).flatten()
+    rank = torch.full((n,), -1, dtype=torch.long)
+    rank[wide_ids] = torch.arange(wide_ids.numel())
+    bucket = torch.where(wide, n + rank[owner] * 32 + pos % 32, owner)
+    part = torch.zeros((C, n + 32 * wide_ids.numel()), dtype=grad.dtype)
+    part.index_add_(1, bucket[live], flat[:, lane[live]])
+    out = part[:, :n].clone()
+    p = part[:, n:].reshape(C, -1, 32)
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        p = p + p[:, :, lanes ^ off]
+    out[:, wide_ids] = p[:, :, 0]
+    return out
+
+
+def range_lengths(src_lane, starts_by_id, ends_by_id):
+    """Each Gaussian's range length, clamped at the pair capacity, and
+    which slots lie in some range."""
+    pc = src_lane.shape[0]
+    s = torch.clamp(starts_by_id, max=pc).long()
+    length = torch.clamp(torch.clamp(ends_by_id, max=pc).long() - s, min=0)
+    in_range = torch.zeros(pc + 1, dtype=torch.int32, device=s.device)
+    in_range.index_add_(0, s, torch.ones_like(s, dtype=torch.int32))
+    in_range.index_add_(0, s + length,
+                        -torch.ones_like(s, dtype=torch.int32))
+    return length, torch.cumsum(in_range[:pc], 0) > 0
+
+
+def sum_depth(length, warp_range: int):
+    """The most additions any one term of a sum goes through in
+    ``emission_sums``: serial up to ``warp_range`` slots, else a lane's
+    share of 32 and the five levels of the butterfly."""
+    return torch.where(length <= warp_range, length,
+                       (length + 31) // 32 + 5)
+
+
+def emission_sums_check(trainer, cfg, views):
+    """The emission-order reduction on one training step's K2 output (the
+    first view, the loss's own cotangents): the kernel bitwise its twin
+    (``emission_sums_twin`` on the CPU) and equal to itself from one
+    launch to the next, within its rounding bound of a float64 sum (the
+    additions a term goes through, plus one, times 2^-24, times the summed
+    magnitudes); the gaps to that float64 sum of the kernel and of the
+    plain version (the JAX package's cumsum difference, the path before the
+    kernel); times of the kernel and of the plain version on the card."""
+    from bloomscene_tpu_torch.ops.cuda import build
+    from bloomscene_tpu_torch.ops.cuda.blend import blend_backward
+    from bloomscene_tpu_torch.ops.cuda.emission_sums import (
+        WARP_RANGE, emission_sums, emission_sums_plain)
+    tile = cfg.tile_size
+    res, counts_p, gx, Tf, ncon, u = train_blend_inputs(trainer, cfg, views)
+    bins = res.bins
+    grad = blend_backward(bins.slab, counts_p, bins.perm, tile, gx, Tf, ncon,
+                          *u)
+    idx = (bins.src_lane, bins.starts_by_id, bins.ends_by_id)
+    got = emission_sums(grad, *idx)
+    again = emission_sums(grad, *idx)
+    plain = emission_sums_plain(grad, *idx)
+    cpu = [t.cpu() for t in (grad, *idx)]
+    twin = emission_sums_twin(*cpu, WARP_RANGE)
+    want = emission_sums_twin(cpu[0].double(), *cpu[1:], WARP_RANGE)
+    mag = emission_sums_twin(cpu[0].double().abs(), *cpu[1:], WARP_RANGE)
+    length, in_range = range_lengths(*cpu[1:])
+    tol = (sum_depth(length, WARP_RANGE) + 1).double() * 2.0 ** -24 * mag
+
+    def gaps(x):
+        d = x.cpu().double() - want
+        return {"max_abs": float(d.abs().max()),
+                "norm": float(d.norm() / want.norm())}
+
+    n_lanes = grad.shape[1] * grad.shape[2]
+    live = int(((cpu[1] < n_lanes) & in_range).sum())
+    n, pc = bins.starts_by_id.numel(), bins.src_lane.numel()
+    # sums written, ranges read, src_lane over the ranges, a live pair's
+    # ten gathers of grad; ten adds a live pair
+    t_bytes, by = bound(4 * (10 * n + 2 * n + int(in_range.sum()))
+                        + 40 * live, 10 * live)
+    deterministic = bit_equal(got, again)
+    bitwise_twin = bit_equal(got.cpu(), twin)
+    within = bool(((got.cpu().double() - want).abs() <= tol).all())
+    row = dict(
+        name="emission_sums", route="cuda",
+        source="bloomscene_tpu_torch/csrc/emission_sums.cu",
+        replaces="none (XLA's gather, cumsum and difference at "
+                 "bloomscene_tpu/ops/pallas/wrapper.py:146-172)",
+        max_abs_err=gaps(got)["max_abs"], kernel_gaps=gaps(got),
+        plain_gaps=gaps(plain), within_bound=within,
+        bitwise_twin=bitwise_twin, deterministic=deterministic,
+        ms=time_ms(lambda: emission_sums(grad, *idx), 20),
+        # the plain version is the cumsum difference the port ran before
+        plain_ms=time_ms(lambda: emission_sums_plain(grad, *idx), 20),
+        bound_ms=t_bytes, bound_by=by, library_ms=None,
+        **ptxas_report(build.build_log("emission_sums")),
+        shapes={"grad": list(grad.shape), "pair_capacity": pc,
+                "gaussians": n, "live_pairs": live,
+                "slots_in_ranges": int(in_range.sum()),
+                "nonempty_ranges": int((length > 0).sum()),
+                "longest_range": int(length.max()),
+                "ranges_over_warp_range": int((length > WARP_RANGE).sum())})
+    return row, deterministic and bitwise_twin and within
 
 
 def leaf_errors(names, card: list, cpu: list) -> dict:
@@ -2270,11 +2399,12 @@ def loop_step_ms(chunks: list, graph_log: list, cfg) -> dict:
 
 
 def graph_checks(graph_log: list, per_forward: int) -> bool:
-    """Every captured step holds K2 once, K1, K3 and K4 once a forward,
-    and in phase 2 (none before) hashgrid_encode once a forward,
-    hashgrid_encode_bwd once and hashgrid_bwd four times."""
+    """Every captured step holds K2 and emission_sums once, K1, K3 and K4
+    once a forward, and in phase 2 (none before) hashgrid_encode once a
+    forward, hashgrid_encode_bwd once and hashgrid_bwd four times."""
     return bool(graph_log) and all(
         g["replays"] > 0 and g["launches"]["blend_backward"] == 1
+        and g["launches"]["emission_sums"] == 1
         and all(g["launches"][k] == per_forward for k in FORWARD_KERNELS)
         and g["launches"]["hashgrid_bwd"] == (4 if g["phase"] == 2 else 0)
         and g["launches"]["hashgrid_encode"]
@@ -4105,7 +4235,7 @@ def main() -> int:
     # the measuring pass decodes each camera once too (count_pairs)
     counts_ok = all(v == {"blend_backward": 0, "hashgrid_bwd": 0,
                           "gather_rows_bwd": 0, "hashgrid_encode_bwd": 0,
-                          "stamp": 0,
+                          "stamp": 0, "emission_sums": 0,
                           "hashgrid_encode": 2 * len(frames)}.get(
                               name, len(frames))
                     for name, v in launches.items())
@@ -4159,6 +4289,10 @@ def main() -> int:
                if not good]
     if not k2_ok:
         failed.append("blend_backward")
+    es_row, es_ok = emission_sums_check(trainer, cfg_t, views)
+    emit({"phase": "kernel", "at": "train_step", "card": card, **es_row})
+    if not es_ok:
+        failed.append("emission_sums")
 
     # 9. one phase-2 step's gradients, card against CPU
     p2ref, p2ref_ok = phase2_grad_reference(fresh, 128, repo)
@@ -4492,7 +4626,7 @@ def main() -> int:
     rows[2]["train_strip_shape"] = strip_entries["k1_train"]
     row["strip_shape"] = strip_entries["k2_train"]
     row["render_strip_shape"] = strip_entries["k2_render"]
-    rows += [row, hg_row, cs_row, hge_row, hgb_row, st_row]
+    rows += [row, es_row, hg_row, cs_row, hge_row, hgb_row, st_row]
     # a kernel's launches are those of the main paths: render, train, the
     # schedule, the decoded orbit, the growth run, the CLI's pipeline and
     # its cold start, the device loop (a captured launch counted once a

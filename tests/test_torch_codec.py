@@ -109,6 +109,32 @@ def test_rans_gaussian_crosses_packages(rng, spread):
         rans.decode_gaussian(ours, mean, scale, q))
 
 
+def test_rans_gaussian_stores_a_run_too_wide_to_code(rng):
+    """A width bucket whose residuals span more symbols than the 16-bit
+    probabilities have slots (rows far wider than their step, as a briefly
+    trained context predicts) is stored raw and decodes exactly, in both
+    coders; without those rows the bytes stay the JAX package's."""
+    n = 2000
+    mean, scale, q = (rng.normal(0, 2.0, n), rng.uniform(0.01, 1.0, n),
+                      np.full(n, 0.01))
+    scale[:40] = rng.uniform(1e3, 2e3, 40)        # scale / q above 4096
+    x = rng.normal(mean, scale)
+    wide = rans._bucket_ids(scale, q) == len(rans._BUCKET_EDGES)
+    span = np.round(x[wide] / q[wide]) - np.round(mean[wide] / q[wide])
+    assert span.max() - span.min() + 1 >= 1 << 16
+    ours = rans.encode_gaussian(x, mean, scale, q)
+    assert ours == rans.encode_gaussian(x, mean, scale, q, native=False)
+    want = np.round(x / q) * q
+    for native in (True, False):
+        np.testing.assert_allclose(
+            rans.decode_gaussian(ours, mean, scale, q, native=native), want,
+            atol=1e-9)
+    narrow = ~wide
+    assert rans.encode_gaussian(x[narrow], mean[narrow], scale[narrow],
+                                q[narrow]) == jax_rans.encode_gaussian(
+        x[narrow], mean[narrow], scale[narrow], q[narrow])
+
+
 def test_phi_table_is_scipy_ndtr():
     """The Phi table of both coders: cephes' ndtr written in Python gives
     the bits of the scipy.special.ndtr that the JAX package's table

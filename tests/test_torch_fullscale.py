@@ -79,7 +79,7 @@ def test_run_fullscale_cut_schedule(tmp_path, no_clip):
                                      'blend_forward', 'blend_backward',
                                      'hashgrid_bwd', 'gather_rows_bwd',
                                      'hashgrid_encode', 'hashgrid_encode_bwd',
-                                     'stamp'}
+                                     'stamp', 'emission_sums'}
     # every chunk carries its stamps' span times and its host spans (only
     # the run's last chunk logs a step at log_every 100, and waits for its
     # records); the phase-2 decode's context and rate spans, and the
