@@ -44,6 +44,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .cuda.hashgrid_bwd import grid_scatter
 from .cuda.hashgrid_encode import hashgrid_encode, hashgrid_encode_bwd
 from .quantization import ste_binary
@@ -245,7 +246,7 @@ class _MixEncode(torch.autograd.Function):
     """mix_encode on the card over the binarized tables: the forward kernel,
     and as the backward the backward kernel (each corner's cotangent row and
     table index, and the gradient to x), then ``grid_scatter`` on each
-    table's rows."""
+    table's rows, under the span ``hashgrid.backward``."""
 
     @staticmethod
     def forward(ctx, spec, x, *tables):
@@ -256,12 +257,13 @@ class _MixEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, *tables = ctx.saved_tensors
-        rows, idx, dx = hashgrid_encode_bwd(x, tables, g.contiguous(),
-                                            ctx.spec)
-        grads = [grid_scatter(r, i, t.shape[0]) if need else None
-                 for r, i, t, need in zip(rows, idx, tables,
-                                          ctx.needs_input_grad[2:])]
-        return (None, dx, *grads)
+        with span("hashgrid.backward"):
+            rows, idx, dx = hashgrid_encode_bwd(x, tables, g.contiguous(),
+                                                ctx.spec)
+            grads = [grid_scatter(r, i, t.shape[0]) if need else None
+                     for r, i, t, need in zip(rows, idx, tables,
+                                              ctx.needs_input_grad[2:])]
+            return (None, dx, *grads)
 
 
 def mix_encode(params: dict, x: torch.Tensor,

@@ -2,7 +2,10 @@
 the JAX package on the same inputs.
 
 Projection is elementwise float32 arithmetic in the same order in both
-packages, so the outputs are asserted bitwise equal.
+packages, so the outputs are asserted bitwise equal, the conic at the
+rows in front of the near plane: the port gives a row at or below it a
+safe depth before the EWA Jacobian (its conic is finite there, where the
+JAX package divides by the depth; the row is culled in both).
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,19 @@ def make_camera(W=64, H=64, fovx=1.0, fovy=1.0):
     full = tg.projection_matrix(0.01, 100.0, fovx, fovy) @ view
     return (view, full, tg.fov2focal(fovx, W), tg.fov2focal(fovy, H),
             np.tan(fovx / 2), np.tan(fovy / 2))
+
+
+def assert_same_projection(pj, pt):
+    """Every output bitwise, the conic at the rows in front of the near
+    plane (every valid row is one); the port's conic finite behind it."""
+    front = pt.depth.numpy() > tp.NEAR
+    for name, a, b in zip(pj._fields, pj, pt):
+        a, b = np.asarray(a), b.numpy()
+        if name == 'conic':
+            np.testing.assert_array_equal(a[front], b[front], err_msg=name)
+            assert np.all(np.isfinite(b[~front]))
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 def both_project(means, scales, quats, W=64, H=64):
@@ -91,8 +107,7 @@ def test_project_center_near_and_offscreen():
     np.testing.assert_allclose(pt.mean2d[0], [31.5, 31.5], atol=1e-4)
     np.testing.assert_allclose(pt.depth[0], 2.0, atol=1e-5)
     assert int(pt.radius[0]) > 0
-    for a, b in zip(pj, pt):
-        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert_same_projection(pj, pt)
 
 
 def test_projection_bitwise_random(rng):
@@ -104,16 +119,15 @@ def test_projection_bitwise_random(rng):
     quats /= np.linalg.norm(quats, axis=1, keepdims=True)
     pj, pt = both_project(means, scales, quats, W=96, H=72)
     assert 0 < int(pt.valid.sum()) < n
-    for name, a, b in zip(pj._fields, pj, pt):
-        np.testing.assert_array_equal(np.asarray(a), b.numpy(),
-                                      err_msg=name)
+    assert_same_projection(pj, pt)
     view, _, fx, fy, tx, ty = make_camera(96, 72)
     cov6 = tp.build_cov3d(torch.from_numpy(scales), torch.from_numpy(quats))
+    front = pt.depth.numpy() > tp.NEAR
     np.testing.assert_array_equal(
         tp.ewa_cov2d(torch.from_numpy(means), cov6, torch.from_numpy(view),
-                     fx, fy, tx, ty).numpy(),
+                     fx, fy, tx, ty).numpy()[front],
         np.asarray(jp.ewa_cov2d(jnp.asarray(means), jnp.asarray(cov6.numpy()),
-                                jnp.asarray(view), fx, fy, tx, ty)))
+                                jnp.asarray(view), fx, fy, tx, ty))[front])
 
 
 def test_projection_differentiable():
